@@ -1,16 +1,16 @@
-"""sad_tpu — TPU-native Semi-supervised Adaptive Distillation framework.
+"""sad_tpu — Semi-supervised Adaptive Distillation framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 Tangshitao/Semi-supervised-Adaptive-Distillation (Detectron/Caffe2 fork):
 RetinaNet detection, teacher->student adaptive distillation (arXiv:1901.00366),
-and the semi-supervised pseudo-label loop — designed TPU-first (pjit/shard_map
-over a device mesh, static shapes, fused loss kernels) rather than as a port.
+and the semi-supervised pseudo-label loop — designed for an accelerator
+(sharding over a device mesh, static shapes) rather than as a port.
 
 Layer map (vs. the reference's L0-L6, see SURVEY.md):
   sad_tpu.config    — immutable dataclass config system (ref: lib/core/config.py)
   sad_tpu.data      — COCO-JSON datasets, anchors, minibatch, host loader
                       (ref: lib/datasets/, lib/roi_data/)
-  sad_tpu.models    — ResNet/ResNeXt-FPN + RetinaNet heads in Flax
+  sad_tpu.models    — ResNet/ResNeXt-FPN + RetinaNet heads (models/nn.py layer)
                       (ref: lib/modeling/)
   sad_tpu.ops       — loss/box ops incl. the adaptive distillation loss
                       (ref: caffe2/modules/detectron/*.cu)

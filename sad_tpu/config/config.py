@@ -21,7 +21,8 @@ from dataclasses import dataclass, field, fields, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import yaml
+
+from . import yaml_subset
 
 
 # --------------------------------------------------------------------------- #
@@ -173,27 +174,20 @@ class TestConfig:
     # TEST.SAVE_RES dump path (test_retinanet.py:97-101) with a config option.
     SAVE_RES: bool = False
     SAVE_RES_DIR: str = ""
-    # Reference-exact per-level top-N candidate selection
-    # (test_retinanet.py:136-139 argpartitions the full score vector). When
-    # False, TPU decode may use jax.lax.approx_max_k (PartialReduce,
-    # recall_target 0.99) — ~10x faster over the multi-million-score P3 grid;
-    # measured mAP delta vs exact on a dense 512-image synthetic set: see
-    # BENCH_NOTES.md (topk_parity_drive). Eval defaults to exact; throughput
-    # benches opt into approx.
+    # Per-level top-N candidate selection (test_retinanet.py:136-139
+    # argpartitions the full score vector): True = the exact multiset,
+    # False = approx_max_k at recall 0.99 (ops/topk.py; exact on the GPU).
     EXACT_TOPK: bool = True
     # Pre-NMS candidate cap for the FINAL class-wise NMS of the R-CNN box
     # decode (eval/rcnn_inference.py). The reference NMS-es every
     # (roi, fg class) candidate above SCORE_THRESH (test.py:161-180, class
-    # loop over the thresholded arrays); the dense TPU decode carries all
-    # R x (C-1) slots (79k at R=1000, C=81), which overflows the
-    # sublane-batched Pallas NMS kernel's VMEM ceiling and falls back to
-    # the 1-of-8-sublanes single-problem kernel. N > 0 first takes the
-    # exact top-N candidates by score (ops/topk PartialReduce) and NMS-es
-    # those — bit-identical to the full set whenever <= N candidates clear
-    # SCORE_THRESH (NEG_INF-masked slots can never be picked), and
-    # identical in practice far beyond that (greedy NMS keeps
-    # DETECTIONS_PER_IM=100 of the highest scorers). 0 = reference-exact
-    # full candidate set.
+    # loop over the thresholded arrays); the dense decode carries all
+    # R x (C-1) slots (79k at R=1000, C=81). N > 0 first takes the exact
+    # top-N candidates by score and NMS-es those — bit-identical to the
+    # full set whenever <= N candidates clear SCORE_THRESH (NEG_INF-masked
+    # slots can never be picked), and identical in practice far beyond
+    # that (greedy NMS keeps DETECTIONS_PER_IM=100 of the highest scorers).
+    # 0 = reference-exact full candidate set.
     NMS_CAND_TOPK: int = 0
     PROPOSAL_FILES: Tuple[str, ...] = ()
     PROPOSAL_LIMIT: int = 2000
@@ -287,16 +281,8 @@ class RPNConfig:
     STRIDE: int = 16
     ASPECT_RATIOS: Tuple[float, ...] = (0.5, 1.0, 2.0)
     # Proposal analogue of TEST.EXACT_TOPK (framework-only key): exact
-    # pre-NMS candidate top-N per (level, image). When False, TPU uses
-    # jax.lax.approx_max_k at recall_target 0.99 over the dense RPN score
-    # grids (P2 alone is ~200k scores at 800x1344); non-TPU backends fall
-    # back to exact. Applies to BOTH train and test proposal paths. Chip
-    # measurements (BENCH_NOTES.md, rpn_topk_parity_drive): EVAL-time
-    # −2.3e-4 AP on an exact-trained checkpoint; TRAIN-time (--train-both,
-    # round 4) an approx-trained model matched the exact-trained one
-    # bit-identically at 256-img/800-iter scale — though at that scale the
-    # approx selection coincided with exact throughout, so the train-time
-    # evidence bounds mild truncation pressure only. Default True.
+    # pre-NMS candidate top-N per (level, image); False = recall 0.99.
+    # Applies to BOTH train and test proposal paths.
     EXACT_TOPK: bool = True
 
 
@@ -312,7 +298,7 @@ class FastRCNNConfig:
     # 14 matches the reference default (config.py:669) — the C4 family
     # relies on it; every FPN YAML overrides to 7 explicitly
     ROI_XFORM_RESOLUTION: int = 14
-    ROI_XFORM_SAMPLING_RATIO: int = 2  # 0 (adaptive) is not traceable on TPU
+    ROI_XFORM_SAMPLING_RATIO: int = 2  # 0 (adaptive) is not static, so not traceable
     CONV_INIT: str = "GaussianFill"
 
 
@@ -335,12 +321,12 @@ class MRCNNConfig:
     CONV_INIT: str = "GaussianFill"
     UPSAMPLE_RATIO: int = 1
     USE_FC_OUTPUT: bool = False
-    # TPU extension (no reference analogue): static per-image RoI slot count
+    # Static-shape extension (no reference analogue): per-image RoI slot count
     # for the mask branch. -1 = the box head's fg cap
     # (BATCH_SIZE_PER_IM * FG_FRACTION = 128 at reference settings), which is
     # the reference's own worst case — its dynamic shapes pay only the
     # ACTUAL fg count per step. Lower caps trade worst-case supervision
-    # coverage for a proportional cut of the (MXU-bound) aux-branch cost;
+    # coverage for a proportional cut of the (matmul-bound) aux-branch cost;
     # fg rois beyond the cap keep box supervision but get no mask loss.
     ROI_SLOTS_PER_IM: int = -1
 
@@ -368,9 +354,9 @@ class KRCNNConfig:
     KEYPOINT_CONFIDENCE: str = "bbox"
     MIN_KEYPOINT_COUNT_FOR_VALID_MINIBATCH: int = 20
     NMS_OKS: bool = False
-    # TPU extension: static per-image RoI slot count for the keypoint branch
-    # (see MRCNN.ROI_SLOTS_PER_IM; the 8x512-wide keypoint tower measures
-    # 85% of bf16 MXU peak, so its cost is linear in this cap)
+    # Static per-image RoI slot count for the keypoint branch (see
+    # MRCNN.ROI_SLOTS_PER_IM; the 8x512-wide keypoint tower's cost is linear
+    # in this cap)
     ROI_SLOTS_PER_IM: int = -1
     # minimum upsampled-heatmap extent at decode (ref: config.py:854 +
     # keypoints.py:129-134)
@@ -419,9 +405,9 @@ class DataLoaderConfig:
     """Host data pipeline (ref: config.py:205-210 DATA_LOADER).
 
     NUM_THREADS mirrors the reference's loader thread count. NUM_PROCESSES
-    is a TPU-side addition: >0 selects the multi-process minibatch builder
-    (data/mp_loader.py) — the threaded builder is GIL-bound and cannot feed
-    a chip that consumes >100 imgs/s; -1 auto-sizes to host cores - 1."""
+    is an addition: >0 selects the multi-process minibatch builder
+    (data/mp_loader.py) — the threaded builder is GIL-bound and can fall
+    behind the accelerator; -1 auto-sizes to host cores - 1."""
 
     NUM_THREADS: int = 4
     NUM_PROCESSES: int = 0
@@ -453,7 +439,7 @@ class Config:
     DISTILLATION: DistillationConfig = field(default_factory=DistillationConfig)
     DATA_LOADER: DataLoaderConfig = field(default_factory=DataLoaderConfig)
 
-    NUM_GPUS: int = 1  # number of device-groups; on TPU = mesh data-axis size
+    NUM_GPUS: int = 1  # number of image groups per step (per-group loss normalizers)
     DEDUP_BOXES: float = 1.0 / 16.0
     BBOX_XFORM_CLIP: float = float(np.log(1000.0 / 16.0))
     # Pixel normalization (BGR order, matching the reference's cv2 pipeline;
@@ -468,16 +454,16 @@ class Config:
     EXPECTED_RESULTS_ATOL: float = 0.005
     VIS: bool = False
     VIS_TH: float = 0.9
-    USE_NCCL: bool = False  # parity knob; collectives are XLA's on TPU
+    USE_NCCL: bool = False  # parity knob; XLA inserts the collectives
     DOWNLOAD_CACHE: str = "/tmp/sad_tpu_download_cache"
 
-    # TPU-specific additions (not in the reference):
+    # Additions (not in the reference):
     # compute dtype for backbone/head matmuls ('bfloat16' or 'float32');
     # losses always accumulate in float32.
     COMPUTE_DTYPE: str = "bfloat16"
     # Rematerialize backbone activations in backward (jax.checkpoint) —
-    # the TPU analogue of the reference's memonger gradient-blob sharing
-    # (train_net.py:247-258, python/memonger.py): trade FLOPs for HBM.
+    # the analogue of the reference's memonger gradient-blob sharing
+    # (train_net.py:247-258, python/memonger.py): trade FLOPs for memory.
     REMAT_BACKBONE: bool = False
     # Space-to-depth conv1 (MLPerf-style): compute the 7x7/s2 stem as a
     # weight-equivalent 4x4/s1 conv over 2x2-blocked 12-channel input.
@@ -498,14 +484,6 @@ class Config:
     PROFILE_DIR: str = ""
     PROFILE_START_ITER: int = 10
     PROFILE_NUM_ITERS: int = 5
-    # Use the fused Pallas loss kernel instead of the jnp ops. The round-2
-    # redesign (lane packing 8x80->640, in-kernel PowSum, per-group raw
-    # sums) closed the gap from -13% to -2.8% on the joint SAD step
-    # (measured honestly with evolving state: XLA 156.5 vs Pallas 161.0
-    # ms/step at bs16; BENCH_NOTES.md) — XLA's multi-output fusion still
-    # wins, so the default stays off; the kernel remains fully tested
-    # against the CUDA-transcription oracles.
-    USE_PALLAS_LOSSES: bool = False
 
     # ---------------------------------------------------------------- helpers
 
@@ -553,7 +531,7 @@ _RENAMED_KEYS = {
 # these sections are validated as "known but inert" so upstream configs load.
 _INERT_SECTIONS = {"RFCN", "VGG", "VGG_CNN_M_1024"}
 
-# Top-level scalar keys from the reference accepted but unused on TPU.
+# Top-level scalar keys from the reference accepted but unused here.
 _INERT_TOP_KEYS = {
     "DEBUG",
     "MEMONGER",
@@ -673,14 +651,13 @@ def cfg_to_yaml(cfg: Config) -> str:
     Used to embed the active config in checkpoints (ref: net.py:149-182
     stores 'cfg': yaml in every weights pkl) and to drop a cfg.yaml into
     the output dir for the run dashboard."""
-    return yaml.safe_dump(cfg_to_dict(cfg), sort_keys=True,
-                          default_flow_style=None)
+    return yaml_subset.dumps(cfg_to_dict(cfg))
 
 
 def merge_cfg_from_file(cfg: Config, yaml_path: str) -> Config:
     """Load a YAML file (reference-format) and merge it into cfg."""
     with open(yaml_path, "r") as f:
-        d = yaml.safe_load(f)
+        d = yaml_subset.loads(f.read())
     if d is None:
         return cfg
     return merge_cfg_from_dict(cfg, d)

@@ -1,7 +1,7 @@
 """Threaded host->device training data pipeline.
 
 Capability-equivalent to detectron/lib/roi_data/loader.py (RoIDataLoader +
-enqueue threads + Caffe2 BlobsQueue), TPU-redesigned:
+enqueue threads + Caffe2 BlobsQueue), redesigned:
 
 - loader threads build whole static-shape batches (RetinaNetMinibatchBuilder)
   into a bounded host queue; the consumer transfers with jax.device_put and

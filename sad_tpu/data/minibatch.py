@@ -1,7 +1,7 @@
 """Minibatch construction: image prep + dense RetinaNet target blobs.
 
 Capability-equivalent to detectron/lib/roi_data/minibatch.py +
-lib/utils/blob.py:40-106 with TPU-static shapes:
+lib/utils/blob.py:40-106 with static shapes:
 
 - pixel pipeline (preprocess order matters): im / PIXEL_DIV - PIXEL_MEANS,
   then / PIXEL_STD, THEN bilinear resize (blob.py:70-96). BGR channel order.
@@ -31,14 +31,9 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
-
-try:  # the reference's decoder/resizer; PIL/numpy paths are the fallback
-    import cv2 as _cv2
-except ImportError:  # pragma: no cover
-    _cv2 = None
 
 from sad_tpu.config import Config
+from sad_tpu.utils.env import optional_module
 
 from .anchors import all_field_anchors, assign_retinanet_labels
 
@@ -62,10 +57,13 @@ def load_image_bgr(path: str, flipped: bool = False) -> np.ndarray:
     """uint8 HWC BGR (the reference reads with cv2 => BGR, minibatch.py:116).
     cv2.imread when available — the reference's exact decoder, and it skips
     the RGB->BGR copy; PIL fallback otherwise."""
-    if _cv2 is not None:
-        bgr = _cv2.imread(path, _cv2.IMREAD_COLOR)
+    cv2 = optional_module("cv2")
+    if cv2 is not None:
+        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
         if bgr is not None:
             return np.ascontiguousarray(bgr[:, ::-1]) if flipped else bgr
+    from PIL import Image
+
     with Image.open(path) as img:
         rgb = np.asarray(img.convert("RGB"))
     if flipped:
@@ -97,6 +95,8 @@ def resize_bgr_u8(im_bgr: np.ndarray, scale: float) -> np.ndarray:
     if (new_h, new_w) == im_bgr.shape[:2]:
         return im_bgr
     if scale >= 1.0:
+        from PIL import Image
+
         return np.asarray(
             Image.fromarray(im_bgr).resize((new_w, new_h), Image.BILINEAR)
         )

@@ -1,8 +1,8 @@
 """Multi-process host data pipeline.
 
 The threaded TrainingLoader (data/loader.py) is GIL-bound: minibatch building
-is numpy-hot (resize, anchor labeling) and measures ~13 imgs/s per host core,
-while one TPU chip consumes >100 imgs/s on the joint SAD step. The reference
+is numpy-hot (resize, anchor labeling), while one accelerator consumes
+images faster than one host core builds them. The reference
 sidesteps the GIL because cv2 releases it (lib/roi_data/loader.py:66-115,
 4 loader threads were enough for Caffe2); our equivalent is real processes.
 
@@ -28,11 +28,13 @@ get_next_batch strictly alternates by batch parity (loader.py:140-146).
 Worker errors are shipped back as formatted tracebacks and re-raised on the
 consumer thread after already-built batches drain (matching the threaded
 loader's error propagation). Uses the 'spawn' start method: the parent has
-live JAX/TPU client threads that must not be forked.
+live JAX client threads that must not be forked, and the workers run with
+JAX_PLATFORMS=cpu (worker_environment) so none opens the accelerator.
 """
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import queue
@@ -74,6 +76,31 @@ def _worker_loop(task_q, result_q, builder, roidbs):
         except BaseException:  # noqa: BLE001 — ship to parent
             result_q.put((_ERROR, 0, traceback.format_exc()))
             return
+
+
+@contextlib.contextmanager
+def worker_environment():
+    """The environment spawned loader workers inherit.
+
+    - JAX_PLATFORMS=cpu: a worker must never open the accelerator. A JAX
+      process reserves most of a GPU's memory when it first touches it, so a
+      worker that did would starve the trainer.
+    - OMP_NUM_THREADS=1 unless the operator set it: BLAS/OpenMP pools size
+      themselves when the child imports numpy, during spawn bootstrap, so N
+      workers would otherwise each open a cores-wide thread pool.
+
+    The parent's environment is restored on exit."""
+    saved = {k: os.environ.get(k) for k in ("JAX_PLATFORMS", "OMP_NUM_THREADS")}
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 class MultiprocessTrainingLoader:
@@ -159,15 +186,7 @@ class MultiprocessTrainingLoader:
     # ---------------------------------------------------------------- start
 
     def start(self, prefill: bool = False):
-        # BLAS/OpenMP pools size themselves when the child imports numpy —
-        # which happens during spawn bootstrap, BEFORE any initializer runs.
-        # Default the env in the parent around the spawns (children inherit
-        # it) so N workers don't each open a full cores-wide thread pool; an
-        # operator's explicit OMP_NUM_THREADS setting is honored.
-        prior_omp = os.environ.get("OMP_NUM_THREADS")
-        if prior_omp is None:
-            os.environ["OMP_NUM_THREADS"] = "1"
-        try:
+        with worker_environment():
             for i in range(self.num_workers):
                 p = self._ctx.Process(
                     target=_worker_loop,
@@ -180,11 +199,6 @@ class MultiprocessTrainingLoader:
                 )
                 p.start()
                 self._procs.append(p)
-        finally:
-            if prior_omp is None:
-                os.environ.pop("OMP_NUM_THREADS", None)
-            else:
-                os.environ["OMP_NUM_THREADS"] = prior_omp
         self._dispatcher.start()
         self._collector.start()
         if prefill:

@@ -1,7 +1,7 @@
 """Model export for serving: ahead-of-time serialized inference programs.
 
 The reference's deployment story is Caffe2 NetDef protobuf export
-(lib/utils/model_convert_utils.py net transforms for deploy); the TPU-native
+(lib/utils/model_convert_utils.py net transforms for deploy); the JAX
 analogue is `jax.export`: the jitted inference function (model + decode +
 NMS, fixed shapes) serializes to a portable StableHLO artifact that a serving
 binary reloads and calls without Python model code.

@@ -1,7 +1,7 @@
 """RetinaNet inference: fully on-device batched decode.
 
 Capability-equivalent to detectron/lib/core/test_retinanet.py:69-204, but
-TPU-redesigned: the reference fetches per-level maps to the host and decodes
+redesigned: the reference fetches per-level maps to the host and decodes
 one image at a time in numpy (threshold -> argpartition top-1000 -> delta
 transform -> per-class Cython NMS -> top-100); here the whole pipeline —
 sigmoid, thresholding, per-level top-k, box decode, class-offset NMS, final
@@ -52,13 +52,7 @@ def _level_candidates(
     flat = probs.reshape(-1)
     k = min(top_n, flat.shape[0])
     masked = jnp.where(flat > threshold, flat, NEG_INF)
-    # TEST.EXACT_TOPK=False routes to 0.99-recall PartialReduce (~an order
-    # of magnitude faster over the multi-million-score P3 grid; measured AP
-    # delta -1.7e-8, topk_parity_drive / BENCH_NOTES.md). The exact default
-    # is ALSO PartialReduce on TPU, at recall 1.0 (exact multiset, 1.53x
-    # the sort; ops/topk.py + BENCH_NOTES round-4). Non-TPU backends lower
-    # approx_max_k to an exact fallback, so the CPU suite exercises the
-    # same code path (tests/test_parity_e2e.py).
+    # exact multiset (ops/topk.py); TEST.EXACT_TOPK=False asks for 0.99 recall
     scores, inds = topk.top_k(masked, k, exact=exact_topk)
     valid = scores > NEG_INF
 
@@ -152,8 +146,7 @@ def decode_detections(
         boxes = {lvl: jnp.zeros_like(b) for lvl, b in boxes.items()}
 
     # candidates per image under vmap; ONE class-wise NMS call over the
-    # whole batch (the Pallas kernel packs 8 images into the VPU sublanes —
-    # ~8x cheaper than NMS inside the vmap, identical results)
+    # whole batch (one kernel program per image on a GPU)
     from sad_tpu.ops.nms import batched_nms_multi
 
     boxes_b, scores_b, classes_b, valid_b = jax.vmap(one_image)(

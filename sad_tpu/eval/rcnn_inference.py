@@ -58,8 +58,8 @@ def decode_rcnn_detections(
         )
         return decoded, scores, classes, cand_valid
 
-    # one sublane-packed class-wise NMS call over the whole batch (8
-    # images per kernel program; identical per-image results)
+    # one class-wise NMS call over the whole batch (identical per-image
+    # results)
     from sad_tpu.ops.nms import batched_nms_multi
 
     boxes_b, scores_b, classes_b, valid_b = jax.vmap(one_image)(
@@ -157,7 +157,6 @@ def make_rcnn_inference_fn(cfg: Config, model) -> Callable:
                     cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
                     cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO,
                     slots_per_im=r,  # flat is image-major by construction
-                    inference=True,
                 )
                 cls_score, bbox_pred = model.apply(
                     {"params": params}, roi_feats,
@@ -236,7 +235,6 @@ def make_rcnn_inference_fn(cfg: Config, model) -> Callable:
                     cfg.MRCNN.ROI_XFORM_RESOLUTION,
                     cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO,
                     slots_per_im=k,  # flat is image-major by construction
-                    inference=True,
                 )
                 logits = model.apply(
                     {"params": params}, mf, method="mask_heads"
@@ -250,7 +248,6 @@ def make_rcnn_inference_fn(cfg: Config, model) -> Callable:
                     cfg.KRCNN.ROI_XFORM_RESOLUTION,
                     cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO,
                     slots_per_im=k,  # flat is image-major by construction
-                    inference=True,
                 )
                 hm = model.apply({"params": params}, kf, method="keypoint_heads")
                 dets["kps_heatmaps"] = hm.reshape((b, k) + hm.shape[1:])
@@ -300,7 +297,6 @@ def make_aux_on_boxes_fn(cfg: Config, model) -> Callable:
                     cfg.MRCNN.ROI_XFORM_RESOLUTION,
                     cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO,
                     slots_per_im=k,  # flat is image-major by construction
-                    inference=True,
                 )
                 logits = model.apply(
                     {"params": params}, mf, method="mask_heads"
@@ -314,7 +310,6 @@ def make_aux_on_boxes_fn(cfg: Config, model) -> Callable:
                     cfg.KRCNN.ROI_XFORM_RESOLUTION,
                     cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO,
                     slots_per_im=k,  # flat is image-major by construction
-                    inference=True,
                 )
                 hm = model.apply(
                     {"params": params}, kf, method="keypoint_heads"

@@ -184,7 +184,7 @@ def aux_aug_transforms(aug, cfg: Config) -> List[Dict]:
     im_detect_mask_aug:410-478 / im_detect_keypoints_aug:582-665; the
     identity pass is the base inference and not listed).
 
-    Aspect-ratio transforms are not supported (static TPU canvases).
+    Aspect-ratio transforms are not supported (static canvases).
     Each transform is tagged ds/us (computed at a lower/higher scale than
     TEST.SCALES[0]) for size-dependent combining (test.py:616-623).
     """

@@ -1,7 +1,7 @@
 """Dataset inference engine + pseudo-label generation.
 
 Capability-equivalent to detectron/lib/core/test_engine.py:51-261 and the
-semi-supervised pseudo-label flow (SURVEY.md §3.4), TPU-redesigned:
+semi-supervised pseudo-label flow (SURVEY.md §3.4), redesigned:
 
 - the reference loops one image at a time on the host and shards a dataset
   across GPU subprocesses (test_engine.py:115-153, subprocess.py:39); here

@@ -2,7 +2,7 @@
 
 Replaces the reference's string-dispatch graph builders
 (model_builder.py:160 get_func / MODEL.CONV_BODY strings) with a small typed
-struct the Flax modules key off. The CONV_BODY strings from reference YAMLs
+struct the model modules key off. The CONV_BODY strings from reference YAMLs
 are still accepted and parsed.
 """
 

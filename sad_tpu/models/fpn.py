@@ -17,9 +17,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from . import nn
 from .arch import ModelArch
 from .resnet import ResNetBody, _conv
 

@@ -2,7 +2,7 @@
 
 Capability-equivalent to detectron/lib/modeling/{rpn_heads, fast_rcnn_heads,
 mask_rcnn_heads, keypoint_rcnn_heads}.py and the generalized_rcnn builder
-(model_builder.py:74-92), TPU-redesigned: proposals are generated on device
+(model_builder.py:74-92), redesigned: proposals are generated on device
 with static shapes (sad_tpu.ops.proposals) and every RoI stage is a fixed-R
 batched tensor program; there is no graph surgery, Python net ops, or
 CollectAndDistribute blob shuffling.
@@ -17,11 +17,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from . import nn
 from sad_tpu.config import Config
 
 from .arch import arch_from_config
@@ -284,8 +284,8 @@ class GeneralizedRCNN(nn.Module):
         b = images.shape[0]
         na = len(cfg.FPN.RPN_ASPECT_RATIOS)
 
-        # candidates per (level, image) under vmap; ONE sublane-packed
-        # greedy-NMS kernel call over all level x image problems
+        # candidates per (level, image) under vmap; ONE greedy-NMS call
+        # over all level x image problems
         # (ops/proposals.nms_levels_batched). PRE/POST_NMS_TOP_N are per
         # FPN level in the reference (collect step caps globally after).
         prop_levels = []
@@ -343,7 +343,6 @@ class GeneralizedRCNN(nn.Module):
             cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
             cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO,
             slots_per_im=r,  # flat_rois is image-major by construction
-            inference=True,  # __call__ is the TEST-knob serving forward
         )
         cls_score, bbox_pred = self.box_head(roi_feats)
         return {

@@ -1,8 +1,7 @@
-"""ResNet / ResNeXt backbone bodies in Flax (NHWC, bf16 compute).
+"""ResNet / ResNeXt backbone bodies (NHWC, bf16 compute).
 
-Capability-equivalent to detectron/lib/modeling/ResNet.py, redesigned for TPU:
-- NHWC layout (XLA's preferred conv layout on TPU), bfloat16 compute with
-  float32 params.
+Capability-equivalent to detectron/lib/modeling/ResNet.py, redesigned:
+- NHWC layout, bfloat16 compute with float32 params.
 - AffineChannel frozen-BN (scale/bias receive no gradient — the reference's
   AffineChannel gradient maker only emits GI(0),
   caffe2/modules/detectron/affine_channel_op.cc:70-80).
@@ -15,8 +14,8 @@ Capability-equivalent to detectron/lib/modeling/ResNet.py, redesigned for TPU:
   tree is unchanged (W and s/b stay separate params under the reference
   blob names), so checkpoints/converter/trainable-masks are untouched.
 - ResNeXt = grouped 3x3 routed through ops/grouped_conv.py, whose
-  SAD_TPU_GROUPED_CONV_IMPL trace-time knob swaps the MXU phrasing
-  (feature_group_count / group-to-batch / lane-packed block-diagonal)
+  SAD_TPU_GROUPED_CONV_IMPL trace-time knob swaps the conv phrasing
+  (feature_group_count / group-to-batch / packed block-diagonal)
   underneath an unchanged parameter tree; CHANNEL_RATIO width
   multiplier for half-width students (ResNet.py:99-118).
 
@@ -28,10 +27,10 @@ from __future__ import annotations
 
 from typing import Any, List
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from . import nn
 from ..ops import grouped_conv as _gc
 from .arch import ModelArch
 
@@ -71,8 +70,8 @@ def _conv(name: str, features: int, kernel: int, stride: int = 1,
 class GroupedConv(nn.Module):
     """Grouped conv with the same param tree as nn.Conv(feature_group_count)
     — name 'kernel', shape (k, k, cin/groups, features) — but whose compute
-    phrasing is selected at trace time by ops/grouped_conv.py (the MXU
-    study knob, BENCH_NOTES round-4 grouped-conv section). Checkpoints and
+    phrasing is selected at trace time by ops/grouped_conv.py.
+    Checkpoints and
     the weight converter see no difference."""
 
     features: int
@@ -154,11 +153,11 @@ def _apply_conv(x, kernel, stride=1, dilation=1, groups=1):
 
 
 class Conv1S2D(nn.Module):
-    """conv1 as a weight-equivalent space-to-depth conv (the MLPerf TPU
-    trick for the stem).
+    """conv1 as a weight-equivalent space-to-depth conv (the MLPerf trick
+    for the stem).
 
-    A 7x7/s2 conv over 3-channel input maps poorly onto the MXU: the
-    contracting dim packs cin=3 into 128-wide lanes. Regrouping 2x2 input
+    A 7x7/s2 conv over 3-channel input contracts over only cin=3 channels
+    per tap. Regrouping 2x2 input
     blocks into 12 channels turns it into a 4x4/s1 conv with IDENTICAL
     outputs: zero-pad the kernel to 8x8 with a leading row/col (the extra
     tap multiplies zeros), then split each spatial axis into (tap, block

@@ -1,7 +1,7 @@
 """RetinaNet heads on an FPN backbone.
 
 Capability-equivalent to detectron/lib/modeling/retinanet_heads.py:63-245,
-TPU-redesigned:
+Redesigned:
 - The cls/bbox towers are defined ONCE and applied to every pyramid level —
   the reference's ConvShared cross-level weight-sharing trick
   (retinanet_heads.py:113-123) becomes natural module reuse.
@@ -18,10 +18,10 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
 import numpy as np
 
+from . import nn
 from .arch import ModelArch
 from .fpn import FPNRetinaNetBackbone
 from .resnet import _conv

@@ -14,12 +14,12 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 
+from . import nn
 from .resnet import _conv
 from .vgg import VGG16Body, VGGCNNM1024Body
 
@@ -315,7 +315,7 @@ class SingleScaleRCNN(nn.Module):
         return self.mask_out(res5_spatial)
 
     def init_all(self, images: jnp.ndarray, im_hw: jnp.ndarray):
-        """Forward pass touching every head (mask included) so flax.init
+        """Forward pass touching every head (mask included) so init()
         materializes all params."""
         out = self.__call__(images, im_hw)
         if self.cfg_static.MODEL.MASK_ON and hasattr(self, "mask_out"):
@@ -355,8 +355,8 @@ class SingleScaleRCNN(nn.Module):
         anchors = jnp.asarray(field_of_anchors(cell, stride, h, w), jnp.float32)
         na = self._num_anchors
 
-        # candidates per image under vmap; ONE sublane-packed greedy-NMS
-        # kernel call for all images (ops/proposals.nms_levels_batched)
+        # candidates per image under vmap; ONE greedy-NMS call for all
+        # images (ops/proposals.nms_levels_batched)
         bx, ts, ms = jax.vmap(
             lambda s, dd, ihw: proposal_candidates(
                 jax.nn.sigmoid(s), dd.reshape(h, w, na, 4), anchors, ihw,

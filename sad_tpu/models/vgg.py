@@ -10,9 +10,9 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from . import nn
 from .resnet import _conv
 
 

@@ -31,7 +31,6 @@ from .detectron_ops import (
     smooth_l1_loss_per_roi,
     box_annotator_ohem,
 )
-from .pallas_losses import fused_cls_losses
 from .proposals import (
     generate_proposals,
     collect_and_distribute_fpn_proposals,

@@ -96,7 +96,7 @@ def bbox_overlaps(boxes: jnp.ndarray, query_boxes: jnp.ndarray) -> jnp.ndarray:
     """Pairwise IoU matrix (N, K) with the legacy "+1" area convention.
 
     Ref: lib/utils/cython_bbox.pyx bbox_overlaps — the anchor-labeling hot
-    loop; here a dense vectorized form suitable for both numpy and TPU.
+    loop; here a dense vectorized form suitable for both numpy and jax.numpy.
     """
     boxes = boxes.astype(jnp.float32)
     query_boxes = query_boxes.astype(jnp.float32)

@@ -1,4 +1,4 @@
-"""The rest of the reference's custom op library, TPU-native.
+"""The rest of the reference's custom op library, as static-shape JAX.
 
 Covers the caffe2/modules/detectron ops not already in sad_tpu.ops.losses
 (SURVEY.md §2.2a inventory). Layouts are NHWC (features) and (R, 5) rois
@@ -47,18 +47,14 @@ def roi_align(
     spatial_scale: float,
     resolution: int,
     sampling_ratio: int = 2,
-    # 256 is the warmup-aware bisection winner on the v5e chip: 41.8 ms
-    # full Faster R-CNN step vs 43.4 at 64 and 44.7 at 512
-    # (tools_drives/roi_chunk_bisect_drive.py, BENCH_NOTES.md); the earlier
-    # 604 ms reading for 256 was a cold-executable window.
-    roi_chunk: int = 256,
+    roi_chunk: int = 256,  # not measured on the GPU
     slots_per_im: int = 0,
 ) -> jnp.ndarray:
     """RoIAlign, exact Detectron semantics (roi_align_op.cu:89-160): no
     rounding of roi coords, malformed rois forced to 1x1, average of an
     sr x sr bilinear sample grid per bin.
 
-    sampling_ratio must be static and > 0 on TPU (the reference's adaptive
+    sampling_ratio must be static and > 0 (the reference's adaptive
     sampling_ratio=0 computes a data-dependent grid per roi, which XLA cannot
     trace; pass an explicit ratio — Detectron FPN configs use 2).
     Returns (R, resolution, resolution, C).
@@ -72,7 +68,7 @@ def roi_align(
     forward FLOPs by ~B (the round-5 jaxpr audit measured the un-blocked
     form spending ~half the bs8 Mask R-CNN step FLOPs multiplying
     cross-image zeros)."""
-    assert sampling_ratio > 0, "TPU path needs a static sampling_ratio (>0)"
+    assert sampling_ratio > 0, "needs a static sampling_ratio (>0)"
     features = jnp.asarray(features)
     b, h, w, c = features.shape
     res, sr = resolution, sampling_ratio
@@ -83,10 +79,8 @@ def roi_align(
             f" got {rois.shape[0]}"
         )
     # b >= 4: blocking cuts executed flops by b, but the per-image matmuls
-    # contract over a b-times-smaller axis and tile the MXU worse. Chip
-    # measurements (round-5 queue #3): bs8 families +18-19% step; bs2 mask
-    # 62.8 ms blocked vs 61.1 unblocked (-2.8%) — so small batches keep
-    # the batch-folded form.
+    # contract over a b-times-smaller axis; small batches keep the
+    # batch-folded form (threshold not measured on the GPU).
     if slots_per_im and b >= 4:
         rois_im = rois.reshape(b, slots_per_im, 5)
         rois_im = rois_im.at[:, :, 0].set(0.0)  # single-image batch index
@@ -100,17 +94,15 @@ def roi_align(
         out = jax.vmap(one_image)(features, rois_im)
         return out.reshape(b * slots_per_im, res, res, c)
 
-    # TPU-native formulation: bilinear interpolation weights over a grid
+    # Matmul formulation: bilinear interpolation weights over a grid
     # axis are exactly the tent function max(0, 1-|y-row|) after the CUDA
     # kernel's edge handling (clamp-below 0, full weight to the top row
     # when floor(y) >= n-1, zero outside [-1, n]). Since the kernel's
     # weight of pixel (row, col) is the PRODUCT wy[row]*wx[col] and the
     # sr x sr bin average distributes over that product, the whole op is
-    # two per-axis weight MATMULS: out = Wy @ F @ Wx^T. This keeps all the
-    # FLOPs on the MXU, and the backward is transposed matmuls — no
-    # scatter-add (the gather/scatter lowering measured ~100x off the
-    # traffic floor on TPU: 61 ms fwd / 232 ms fwd+bwd for 1024 rois at
-    # FPN scale vs ~1 ms of matmul work; BENCH_NOTES.md round-2 tail).
+    # two per-axis weight MATMULS: out = Wy @ F @ Wx^T. The FLOPs land in
+    # matrix units, and the backward is transposed matmuls — no
+    # scatter-add.
     # The chunked two-matmul form is bound by HBM traffic of the (rc*res,
     # keep_dim*c) intermediate, so (a) contract the LARGER spatial axis
     # first (the intermediate keeps the smaller one), and (b) store the
@@ -449,7 +441,7 @@ def batch_permutation(x: jnp.ndarray, indices: jnp.ndarray) -> jnp.ndarray:
 
 def sample_as(x: jnp.ndarray, labels: jnp.ndarray, max_out: int) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Select rows of x where labels > 0 (sample_as_op.cu — mask subsampling).
-    TPU-static form: returns (x_selected (max_out, ...), valid (max_out,));
+    Static-shape form: returns (x_selected (max_out, ...), valid (max_out,));
     rows beyond the fg count are zero/invalid."""
     fg = labels > 0
     order = jnp.argsort(~fg, stable=True)  # fg rows first, original order
@@ -550,7 +542,7 @@ def box_annotator_ohem(
 ) -> jnp.ndarray:
     """Select the top-`roi_per_img` hardest RoIs by total loss and return a
     per-RoI keep weight (1 kept / 0 dropped) — the selection semantics of
-    box_annotator_ohem_op.cu, TPU-static (weights instead of label surgery:
+    box_annotator_ohem_op.cu, static-shape (weights instead of label surgery:
     multiply downstream losses by the returned weights)."""
     total = cls_loss + bbox_loss
     k = min(roi_per_img, total.shape[0])

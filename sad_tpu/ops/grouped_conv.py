@@ -1,15 +1,10 @@
-"""Grouped-conv phrasings for the MXU.
+"""Grouped-conv phrasings.
 
-ResNeXt's 64x4d grouped 3x3 convs are the one backbone op that maps badly
-onto the TPU: with groups=64 the per-group width is 4..32 channels — far
-below the MXU's 128-wide lane tile — and XLA's native
-`feature_group_count` lowering leaves the round-4 zoo row at 202 ms/img
-(X-101) vs 24 ms/img (R-101) where the reference's own GPU ratio is only
-~2.1x (MODEL_ZOO.md:889-961; the grouped conv is
-`/root/reference/detectron/lib/modeling/ResNet.py:244-255`, `group=64`).
-
-This module provides one alternative family, parameterized by how many
-groups share a dense conv:
+ResNeXt's grouped 3x3 convs (the reference's `group=64`, ResNet.py
+add_ResNet_bottleneck) have a per-group width of 4..32 channels. Besides
+XLA's native `feature_group_count` lowering (cuDNN's grouped conv on the
+GPU), this module provides one alternative family, parameterized by how
+many groups share a dense conv:
 
     grouped_conv_packed(x, k, groups, pack, ...)
 
@@ -17,17 +12,17 @@ groups share a dense conv:
   and one `batch_group_count=G` conv gives every group its own filters
   with NO flop inflation, at the cost of a cg-wide contraction.
 - ``pack=G``   — single dense conv with a full block-diagonal kernel:
-  G x the flops, but a C_in-wide contraction the MXU can tile.
-- ``1<pack<G`` — the lane-packing middle: ``pack`` consecutive groups
-  share one dense block-diagonal conv of ``pack*cg`` channels
-  (``pack/1`` x flop inflation), batched over ``G/pack`` packs via
-  `batch_group_count`. ``pack = 128 // cg`` fills exactly one lane tile.
+  G x the flops, but a C_in-wide contraction.
+- ``1<pack<G`` — ``pack`` consecutive groups share one dense
+  block-diagonal conv of ``pack*cg`` channels (``pack/1`` x flop
+  inflation), batched over ``G/pack`` packs via `batch_group_count`.
+  ``pack = 128 // cg`` fills a 128-wide contraction.
 
 All phrasings consume the reference kernel layout (kh, kw, cin_per_group,
-C_out) — the same parameter Flax's `feature_group_count` conv holds — so
-they are drop-in at trace time with no checkpoint/converter impact.
-Equivalence is pinned by tests/test_grouped_conv.py; the chip comparison
-lives in tools_drives/grouped_conv_micro_drive.py (BENCH_NOTES round-4).
+C_out) — the same parameter a `feature_group_count` conv holds — so they
+are drop-in at trace time with no checkpoint/converter impact.
+Equivalence is pinned by tests/test_grouped_conv.py. The default ('auto')
+is `feature_group_count`; no packed phrasing has been measured on the GPU.
 """
 from __future__ import annotations
 
@@ -36,12 +31,10 @@ import os
 import jax
 import jax.numpy as jnp
 
-# Phrasing used by the backbone's grouped convs, read at TRACE time (like
-# SAD_TPU_ROI_MODE): 'auto' (lane-packed on TPU, fgc elsewhere — the chip
-# sweep's winner at every X-101 shape, BENCH_NOTES round-4), 'fgc' (XLA
-# feature_group_count), or an integer pack size for grouped_conv_packed
-# ('1' = group-to-batch, 'lane' = 128//cg, 'dense' = one block-diagonal
-# conv over all G groups).
+# Phrasing used by the backbone's grouped convs, read at TRACE time:
+# 'auto' or 'fgc' (XLA feature_group_count), or an integer pack size for
+# grouped_conv_packed ('1' = group-to-batch, 'lane' = 128//cg, 'dense' =
+# one block-diagonal conv over all G groups).
 GROUPED_CONV_IMPL = os.environ.get("SAD_TPU_GROUPED_CONV_IMPL", "auto")
 
 
@@ -141,19 +134,12 @@ def grouped_conv_packed(x, kernel, groups, pack, stride=1, dilation=1):
 
 def resolve_pack(impl: str, groups: int, cg_in: int):
     """Map a GROUPED_CONV_IMPL spelling to a pack size (None = fgc)."""
-    if impl == "auto":
-        # Measured TPU winner at every X-101 grouped shape (cg 4..32),
-        # train AND infer: fill one 128-wide lane tile (whole-trunk train
-        # 118.8 ms vs fgc's 704.8 — BENCH_NOTES round-4). The flop
-        # inflation (128/cg x) only pays off on the MXU; elsewhere keep
-        # XLA's native grouped lowering.
-        impl = "lane" if jax.default_backend() == "tpu" else "fgc"
-    if impl in ("fgc", "", None):
+    if impl in ("auto", "fgc", "", None):
         return None
     if impl == "dense":
         return groups
     if impl == "lane":
-        # Largest DIVISOR of groups that fits one 128-wide lane tile —
+        # Largest DIVISOR of groups that fits a 128-wide contraction —
         # a non-divisor pack (e.g. groups=6, cg=24 -> 128//24 = 5) would
         # make pack_block_diagonal raise at trace time.
         cap = max(1, min(groups, 128 // max(cg_in, 1)))
@@ -167,11 +153,7 @@ def resolve_pack(impl: str, groups: int, cg_in: int):
 
 
 def grouped_conv(x, kernel, groups, stride=1, dilation=1, impl=None):
-    """Dispatch a grouped conv by phrasing (module default: GROUPED_CONV_IMPL).
-
-    The chip micro-study (BENCH_NOTES round-4, grouped-conv section) picks
-    the default; 'fgc' until a measured winner replaces it.
-    """
+    """Dispatch a grouped conv by phrasing (module default: GROUPED_CONV_IMPL)."""
     impl = GROUPED_CONV_IMPL if impl is None else impl
     cg_in = x.shape[-1] // groups
     pack = resolve_pack(impl, groups, cg_in)

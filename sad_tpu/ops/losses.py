@@ -13,13 +13,13 @@ reference's *intentional* quirks (SURVEY.md Appendix A):
   letting autodiff differentiate the forward.
 - ``sigmoid_focal_loss`` (sigmoid_focal_loss_op.cu:25-110).
 - ``select_smooth_l1_loss`` (select_smooth_l1_loss_op.cu:23-96) — re-designed
-  densely for TPU: the reference gathers M sparse fg locations; on TPU the
+  densely: the reference gathers M sparse fg locations; here the
   dense masked form (mask = label grid > 0) computes the same value with
   static shapes and no host-side gather.
 - ``smooth_l1_loss`` (smooth_l1_loss_op.cu) — dense Fast R-CNN bbox loss.
 - ``pow_sum`` (pow_sum_op.cu:26-43) — the adaptive distillation normalizer.
 
-Layout: TPU-native NHWC-ish — logits/teacher probs are ``(..., A, C)``,
+Layout: NHWC-ish — logits/teacher probs are ``(..., A, C)``,
 anchor labels are ``(..., A)`` int32 (-1 ignore band / 0 bg / 1..C fg). The
 leading dims are typically (N, H, W). Gradients flow only to the student
 logits, mirroring the reference gradient makers that pass GI(0) only
@@ -278,7 +278,7 @@ def pow_sum(inputs: Sequence[jnp.ndarray], power: float) -> jnp.ndarray:
 
 
 # --------------------------------------------------------------------------- #
-# SelectSmoothL1Loss — dense masked TPU form
+# SelectSmoothL1Loss — dense masked form
 # --------------------------------------------------------------------------- #
 
 
@@ -294,7 +294,7 @@ def select_smooth_l1_loss(
     """Smooth-L1 over fg anchor locations, normalized by total fg count.
 
     The reference gathers M sparse rows [n, c, y, x]
-    (select_smooth_l1_loss_op.cu:23-48); on TPU we keep the dense grid and
+    (select_smooth_l1_loss_op.cu:23-48); here we keep the dense grid and
     mask — identical total because every fg location appears exactly once.
     Empty-fg short-circuits to 0 exactly like .cu:103-107 (mask sums nothing).
     """

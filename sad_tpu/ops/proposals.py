@@ -3,7 +3,7 @@
 Capability-equivalent to the reference's Python-in-graph CPU ops
 (detectron/lib/ops/generate_proposals.py,
 collect_and_distribute_fpn_rpn_proposals.py, generate_proposal_labels.py and
-lib/roi_data/fast_rcnn.py sampling), redesigned for TPU: every step is a
+lib/roi_data/fast_rcnn.py sampling), redesigned for static shapes: every step is a
 fixed-shape tensor program (top-k + masked NMS + masked sampling) instead of
 host numpy with dynamic row counts. Invalid slots are carried as explicit
 masks.
@@ -22,7 +22,7 @@ import numpy as np
 
 from . import topk
 from .box_transforms import bbox_transform, clip_boxes
-from .nms import NEG_INF, nms_fixed
+from .nms import NEG_INF
 
 
 def proposal_candidates(
@@ -40,13 +40,8 @@ def proposal_candidates(
     filtered candidates).
 
     exact_topk=False (cfg.RPN.EXACT_TOPK, the proposal analogue of
-    TEST.EXACT_TOPK) lets TPU select the pre-NMS candidate pool with
-    0.99-recall PartialReduce instead of the exact top-k — the pool then
-    holds ≥99% of the true top-N; any swapped-in candidate is itself near
-    the score cut. Measured AP delta + step time: BENCH_NOTES.md
-    (rpn_topk_parity_drive). Both routes go through ops.topk.top_k, whose
-    exact path is itself PartialReduce at recall 1.0 on TPU (1.53x the
-    sort; BENCH_NOTES round-4)."""
+    TEST.EXACT_TOPK) asks ops.topk.top_k for recall 0.99 instead of the
+    exact top-k multiset."""
     flat_scores = scores.reshape(-1)
     k = min(pre_nms_top_n, flat_scores.shape[0])
     top_scores, inds = topk.top_k(flat_scores, k, exact=exact_topk)
@@ -85,18 +80,12 @@ def generate_proposals(
         scores, deltas, anchors, im_hw, pre_nms_top_n, min_size
     )
 
-    # Pallas greedy-NMS kernel (ops/pallas_nms.py): at RPN shapes
-    # (K=16384, post_n=2000) it measured 7.2 vs 55 ms/call AND compiles in
-    # <1 s vs ~25 min for the fori_loop form (tools_drives/
-    # rpn_nms_micro_drive.py). Identical keep sequence.
-    from .nms import USE_PALLAS_NMS
+    from .nms import greedy_nms
 
-    if USE_PALLAS_NMS:
-        from .pallas_nms import nms_fixed_pallas
-
-        idx, valid = nms_fixed_pallas(boxes, masked, nms_thresh, post_nms_top_n)
-    else:
-        idx, valid = nms_fixed(boxes, masked, nms_thresh, post_nms_top_n)
+    idx, valid = greedy_nms(
+        boxes[None], masked[None], nms_thresh, post_nms_top_n
+    )
+    idx, valid = idx[0], valid[0]
     return boxes[idx], jnp.where(valid, top_scores[idx], 0.0), valid
 
 
@@ -105,14 +94,13 @@ def nms_levels_batched(
     nms_thresh: float,
     post_nms_top_n: int,
 ) -> Tuple[Dict[int, jnp.ndarray], Dict[int, jnp.ndarray], Dict[int, jnp.ndarray]]:
-    """Greedy NMS for every (level x image) problem in ONE sublane-packed
-    kernel call (ops/nms.nms_multi: 8 problems per kernel program — ~4x
-    cheaper than per-problem calls under vmap, identical per-problem
-    results). Per-level k may differ; shorter levels are padded with
-    NEG_INF candidates that can never be picked or suppress anything.
+    """Greedy NMS for every (level x image) problem in ONE call
+    (ops/nms.greedy_nms), identical per-problem results. Per-level k may
+    differ; shorter levels are padded with NEG_INF candidates that can
+    never be picked or suppress anything.
 
     Returns ({lvl: boxes (B, post_n, 4)}, {lvl: scores}, {lvl: valid})."""
-    from .nms import nms_multi
+    from .nms import greedy_nms
 
     b = prop_levels[0][1].shape[0]
     kmax = max(bx.shape[1] for _, bx, _, _ in prop_levels)
@@ -129,7 +117,7 @@ def nms_levels_batched(
     all_masked = jnp.concatenate(
         [padk(ms, float(NEG_INF)) for _, _, _, ms in prop_levels]
     )
-    keep_idx, keep_valid = nms_multi(
+    keep_idx, keep_valid = greedy_nms(
         all_boxes, all_masked, nms_thresh, post_nms_top_n
     )
     kept_boxes = jnp.take_along_axis(all_boxes, keep_idx[..., None], axis=1)
@@ -198,46 +186,16 @@ def multilevel_roi_align(
     resolution: int,
     sampling_ratio: int = 2,
     slots_per_im: int = 0,
-    inference: bool = False,
 ) -> jnp.ndarray:
     """RoIAlign each roi from its FPN level (ref: RoIFeatureTransform +
     BatchPermutation shuffle, detector.py:240-305). Static-shape strategy:
     run roi_align on every level for all R rois and select per roi — rois
     stay in their original order, so the reference's restore-permutation is
-    unnecessary. Returns (R, res, res, C).
-
-    On TPU this dispatches to the HYBRID pairing by default
-    (ops/pallas_roi_align.py): the dense tent-matmul forward (which XLA
-    overlaps best inside the full step) with the windowed RMW Pallas
-    backward (each roi scatters into only the small window of its ONE
-    assigned level). Fastest measured combination at mask-1x geometry;
-    SAD_TPU_ROI_MODE=dense|windowed|hybrid overrides (BENCH_NOTES.md
-    round-4). inference=True (the serving call sites) flips auto to the
-    WINDOWED forward — no backward to overlap against and 1000 rois/im at
-    eval; +60% on the serving rows (BENCH_NOTES round-5)."""
-    from . import pallas_roi_align
-
-    # Contract: NO gradient flows through roi coordinates on either path
-    # (the reference treats proposals as data, never differentiating the
-    # bilinear tent weights w.r.t. rois; the windowed kernel's VJP returns
-    # zero for rois, so make the dense path match loudly here rather than
-    # silently diverge)
-    rois = jax.lax.stop_gradient(rois)
-    mode = pallas_roi_align.roi_align_mode(
-        rois.shape[0], features, inference=inference
-    )
-    if mode == "windowed":
-        return pallas_roi_align.multilevel_roi_align_windowed(
-            features, rois, roi_levels, valid, resolution, sampling_ratio
-        )
-    if mode == "hybrid":
-        return pallas_roi_align.multilevel_roi_align_hybrid(
-            features, rois, roi_levels, valid, resolution, sampling_ratio,
-            slots_per_im,
-        )
+    unnecessary. Returns (R, res, res, C). No gradient flows to the roi
+    coordinates: the reference treats proposals as data."""
     return dense_multilevel_roi_align(
-        features, rois, roi_levels, valid, resolution, sampling_ratio,
-        slots_per_im,
+        features, jax.lax.stop_gradient(rois), roi_levels, valid,
+        resolution, sampling_ratio, slots_per_im,
     )
 
 
@@ -250,9 +208,8 @@ def dense_multilevel_roi_align(
     sampling_ratio: int = 2,
     slots_per_im: int = 0,
 ) -> jnp.ndarray:
-    """The all-levels tent-matmul form (linear in `features` — the windowed
-    kernel's custom VJP takes its backward as jax.linear_transpose of
-    this). slots_per_im: see ops.detectron_ops.roi_align."""
+    """The all-levels tent-matmul form. slots_per_im: see
+    ops.detectron_ops.roi_align."""
     from .detectron_ops import roi_align
 
     outs = []
@@ -303,7 +260,7 @@ def sample_proposal_labels(
 ) -> Dict[str, jnp.ndarray]:
     """Sample fg/bg RoIs and build Fast R-CNN training targets
     (ref: lib/roi_data/fast_rcnn.py _sample_rois via
-    generate_proposal_labels.py), TPU-static:
+    generate_proposal_labels.py), static-shape:
 
     - gt boxes are appended to the proposal set (Detectron trains on
       proposals union gt),

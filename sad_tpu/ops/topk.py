@@ -1,83 +1,36 @@
 """Top-k selection for the score-grid hot paths (decode + RPN candidates).
 
 The reference selects detection candidates with a sort-based top-k
-(lib/core/test_retinanet.py:120-135 `np.argsort`; GPU BoxWithNMSLimit
-paths sort likewise).  On TPU a full sort of the flattened score grid is
-the wrong tool: at the headline decode geometry P3 alone is
-80*128*9*80 = 7.37M scores per image.  XLA's ApproxTopK custom call
-(two-pass PartialReduce, arXiv:2206.14286) with ``recall_target=1.0``
-computes the EXACT top-k multiset — the reduction keeps enough
-per-partition candidates that no true top-k element can be dropped — and
-measured 1.53x faster than the sort-based ``lax.top_k`` at that geometry
-(tools_drives/exact_topk_impl_drive.py; BENCH_NOTES round-4), with the
-result multiset verified equal on random, quantized-tie, and
-all-elements-tied score fields on the chip.
+(lib/core/test_retinanet.py:120-135 `np.argsort`). At the decode geometry
+P3 alone is 80*128*9*80 = 7.37M scores per image.
 
-So ``exact=True`` (the TEST.EXACT_TOPK / RPN.EXACT_TOPK default) routes
-to PartialReduce-exact on TPU and to ``lax.top_k`` elsewhere.  The one
-semantic difference vs ``lax.top_k`` is WHICH indices are reported when
-several elements tie at the k-th value: the multiset of (score, element)
-pairs is identical, but tie identity at the boundary is
-implementation-defined — the same class of nondeterminism the
-reference's GPU sort has, and the reason parity tests compare score sets
-rather than tie order (tests/test_pallas_nms.py).
+Both settings go through XLA's ApproxTopK (`jax.lax.approx_max_k`).
+``exact=True`` (TEST.EXACT_TOPK / RPN.EXACT_TOPK, the default) asks for
+``recall_target=1.0``; the GPU and CPU lowerings of ApproxTopK are exact,
+so this is the exact top-k multiset. On the GPU it is never slower than
+the sort behind ``lax.top_k`` (PERF.md). ``exact=False`` asks for
+``recall_target=0.99``, which the GPU lowering also computes exactly.
 
-``exact=False`` (the measured opt-in fast profile: decode AP delta
--1.7e-8, RPN -2.3e-4; BENCH_NOTES round-3) uses ``recall_target=0.99``:
-~9x faster again, the pool holds >=99% of the true top-k and any
-swapped-in candidate is itself near the score cut.
-
-Non-TPU backends lower ``approx_max_k`` to an exact fallback, so the CPU
-suite exercises the same call graph either way.
+Which indices are reported when several elements tie at the k-th value is
+implementation-defined: the multiset of (score, element) pairs is exact,
+tie identity at the boundary is not — the same class of nondeterminism
+the reference's GPU sort has, and the reason parity tests compare score
+sets rather than tie order.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 
-# Exact-implementation override: "auto" (PartialReduce on TPU, sort
-# elsewhere), "sort" (always lax.top_k), "partial_reduce" (always the
-# ApproxTopK custom call at recall 1.0).  Read at import AND trace time —
-# like USE_PALLAS_ROI_ALIGN it is not part of any jit cache key, so flip
-# it before tracing (tests monkeypatch it), not between calls to an
-# already-jitted function.
-# Default "auto" since the round-4 flip measurement (BENCH_NOTES:
-# exact-decode inference 69.1 -> 70.9 imgs/s, Faster R-CNN step
-# 33.48 -> 33.67 imgs/s — never worse, exact multiset verified on chip).
-EXACT_TOPK_IMPL = os.environ.get("SAD_TPU_EXACT_TOPK_IMPL", "auto")
-_VALID_IMPLS = ("auto", "sort", "partial_reduce")
-
 
 def top_k(
     x: jnp.ndarray, k: int, exact: bool = True
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Top-k over the last axis; returns (values desc-sorted, indices).
-
-    ``exact=True`` returns the exact top-k multiset (see module note on
-    boundary-tie identity); ``exact=False`` is the 0.99-recall
-    PartialReduce approximation.
-    """
-    if EXACT_TOPK_IMPL not in _VALID_IMPLS:
-        raise ValueError(
-            f"SAD_TPU_EXACT_TOPK_IMPL={EXACT_TOPK_IMPL!r}: want one of "
-            f"{_VALID_IMPLS}"
-        )
+    """Top-k over the last axis; returns (values desc-sorted, indices)."""
     if k >= x.shape[-1]:
         # Degenerate: nothing to select; approx_max_k requires k <= n too.
         return jax.lax.top_k(x, min(k, x.shape[-1]))
-    if not exact:
-        return jax.lax.approx_max_k(x, k, recall_target=0.99)
-    impl = EXACT_TOPK_IMPL
-    if impl == "auto":
-        impl = (
-            "partial_reduce"
-            if jax.default_backend() == "tpu"
-            else "sort"
-        )
-    if impl == "partial_reduce":
-        return jax.lax.approx_max_k(x, k, recall_target=1.0)
-    return jax.lax.top_k(x, k)
+    return jax.lax.approx_max_k(x, k, recall_target=1.0 if exact else 0.99)

@@ -1,7 +1,6 @@
 from .mesh import (
     batch_sharding,
     create_mesh,
-    create_multislice_mesh,
     replicated_sharding,
     shard_batch_tree,
     spatial_sharding,
@@ -9,7 +8,6 @@ from .mesh import (
 
 __all__ = [
     "create_mesh",
-    "create_multislice_mesh",
     "batch_sharding",
     "replicated_sharding",
     "shard_batch_tree",

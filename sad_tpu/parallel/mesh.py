@@ -1,16 +1,16 @@
 """Device mesh and sharding helpers.
 
-This module is the TPU-native replacement for the reference's entire
+This module replaces for the reference's entire
 distributed stack (SURVEY.md §5.8): muji ring allreduce
 (caffe2/python/muji.py:47-183), NCCL ops (contrib/nccl/cuda_nccl_op_gpu.cc),
 Gloo ops + rendezvous stores (contrib/gloo, distributed/), MPI ops
 (mpi/mpi_ops.cc), and the host-mediated parameter broadcast
 (lib/utils/net.py:185-208).
 
-On TPU all of that is one `jax.sharding.Mesh`: parameters are replicated by
-sharding (no broadcast step), and gradient reduction is a psum XLA inserts
-because the loss sums over the batch axis — riding ICI within a slice and DCN
-across slices, chosen by the mesh axis layout.
+Here all of that is one `jax.sharding.Mesh`: parameters are replicated by
+sharding (no broadcast step), and gradient reduction is an all-reduce XLA
+inserts because the loss sums over the batch axis (NCCL over NVLink between
+the GPUs of one host).
 
 Axes:
   'data'  — data parallel (the only parallelism the reference trains with)
@@ -43,30 +43,9 @@ def create_mesh(
     return Mesh(arr, ("data", "model"))
 
 
-def create_multislice_mesh(
-    n_slices: Optional[int] = None,
-    devices: Optional[Sequence] = None,
-) -> Mesh:
-    """Multi-slice mesh: ('dcn', 'data', 'model') with gradient reduction
-    hierarchical over ICI within a slice and DCN across slices — the
-    TPU-native replacement for the reference's multi-node
-    data_parallel_model.Parallelize + Gloo rendezvous
-    (python/data_parallel_model.py:52,60,168). On a single slice this
-    degenerates to a ('dcn'=1) mesh and is equivalent to create_mesh."""
-    devices = list(devices if devices is not None else jax.devices())
-    if n_slices is None:
-        slice_ids = {getattr(d, "slice_index", 0) for d in devices}
-        n_slices = max(len(slice_ids), 1)
-    per_slice = len(devices) // n_slices
-    assert per_slice * n_slices == len(devices)
-    arr = np.asarray(devices).reshape(n_slices, per_slice, 1)
-    return Mesh(arr, ("dcn", "data", "model"))
-
-
 def batch_sharding(mesh: Mesh) -> NamedSharding:
-    """Shard the leading (batch/group) dim over all data-like axes."""
-    axes = tuple(a for a in ("dcn", "data") if a in mesh.axis_names)
-    return NamedSharding(mesh, P(axes if len(axes) > 1 else axes[0]))
+    """Shard the leading (batch/group) dim over the 'data' axis."""
+    return NamedSharding(mesh, P("data"))
 
 
 def replicated_sharding(mesh: Mesh) -> NamedSharding:
@@ -78,10 +57,8 @@ def spatial_sharding(mesh: Mesh) -> NamedSharding:
     over the 'model' axis — the CNN analogue of sequence parallelism
     (SURVEY.md §5.7). XLA partitions the convolutions spatially and inserts
     the halo exchanges; outputs match a replicated run to roundoff (see
-    tests). Use for inputs too large for one chip's HBM."""
-    axes = tuple(a for a in ("dcn", "data") if a in mesh.axis_names)
-    batch_axes = axes if len(axes) > 1 else axes[0]
-    return NamedSharding(mesh, P(batch_axes, "model", None, None))
+    tests). Use for inputs too large for one device's memory."""
+    return NamedSharding(mesh, P("data", "model", None, None))
 
 
 def shard_batch_tree(batch, mesh: Mesh):
@@ -94,7 +71,7 @@ def shard_batch_tree(batch, mesh: Mesh):
     replicated), so it raises instead."""
     s = batch_sharding(mesh)
     rep = replicated_sharding(mesh)
-    n = int(np.prod([mesh.shape[a] for a in mesh.axis_names if a != "model"]))
+    n = mesh.shape["data"]
 
     def put(x):
         arr = np.asarray(x) if not hasattr(x, "shape") else x

@@ -22,6 +22,7 @@ from sad_tpu.eval.inference import make_inference_fn
 from sad_tpu.models import create_model
 from sad_tpu.models.model_builder import init_model_params
 from sad_tpu.train.train_loop import load_reference_or_native
+from sad_tpu.utils.env import enable_compile_cache
 from sad_tpu.utils.logging import setup_logging
 from sad_tpu.utils.vis import vis_one_image
 
@@ -45,6 +46,7 @@ def main(argv=None):
             p.error("provide --image-dir or an im_or_folder operand")
         args.image_dir = args.im_or_folder
 
+    enable_compile_cache()
     cfg = load_cfg(args.cfg_file)
     model = create_model(cfg)
     (h0, w0), _ = canvas_shapes(cfg)

@@ -32,7 +32,7 @@ logger = setup_logging("net_drawer")
 
 def module_table(params: Any, depth: int = 2) -> Dict[str, int]:
     """Aggregate param counts by module scope, `depth` path levels deep
-    (flax nests the backbone under the FPN module, so depth=1 is too
+    (the backbone nests under the FPN module, so depth=1 is too
     coarse to be a drawing)."""
     counts: Dict[str, int] = defaultdict(int)
     for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:

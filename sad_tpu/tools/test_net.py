@@ -21,6 +21,7 @@ from sad_tpu.data.minibatch import canvas_shapes
 from sad_tpu.models import create_model
 from sad_tpu.models.model_builder import init_model_params
 from sad_tpu.train.train_loop import load_reference_or_native
+from sad_tpu.utils.env import enable_compile_cache
 from sad_tpu.utils.logging import setup_logging
 
 logger = setup_logging("test_net")
@@ -59,6 +60,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    enable_compile_cache()
     opts = list(args.opts or [])
     if args.vis:
         opts += ["VIS", "True"]

@@ -15,6 +15,7 @@ import sys
 from sad_tpu.config import load_cfg
 from sad_tpu.config.config import get_output_dir
 from sad_tpu.train.train_loop import train_model
+from sad_tpu.utils.env import enable_compile_cache
 from sad_tpu.utils.logging import setup_logging
 
 logger = setup_logging("train_net")
@@ -37,6 +38,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    enable_compile_cache()
     cfg = load_cfg(args.cfg_file, args.opts or None)
     teacher_cfg = (
         load_cfg(args.teacher_cfg_file) if args.teacher_cfg_file else None

@@ -9,7 +9,7 @@ model_final.pkl exactly like train_net.py:208-233.
 
 The converter maps the reference's Caffe2 blob naming (conv1_w,
 res2_0_branch2a_w, fpn_inner_res5_2_sum_w, retnet_cls_pred_fpn3_w, ...) to the
-sad_tpu Flax param tree and back — module names were chosen to mirror blob
+sad_tpu param tree and back — module names were chosen to mirror blob
 names so this is a pure rename + OIHW->HWIO transpose. This is what unlocks
 mAP-parity testing against released reference weights (SURVEY.md §7 step 2).
 """
@@ -89,7 +89,7 @@ def _iter_param_paths(tree: Any, prefix=()):  # yields (path_tuple, leaf)
 
 
 def _caffe2_name(path: Tuple[str, ...]) -> Optional[str]:
-    """Flax param path -> Caffe2 blob name. Returns None if unknown."""
+    """Param path -> Caffe2 blob name. Returns None if unknown."""
     *mods, leaf = path
     module = mods[-1] if mods else ""
     if module.endswith("_bn"):
@@ -104,7 +104,7 @@ def _caffe2_name(path: Tuple[str, ...]) -> Optional[str]:
 
 
 # Modules implemented as ConvTranspose: Caffe2 stores deconv filters IOHW and
-# computes the conv-adjoint (kernel effectively flipped vs. flax's
+# computes the conv-adjoint (kernel effectively flipped vs. models.nn's
 # ConvTranspose correlation, verified numerically vs torch), so conversion is
 # transpose(2,3,0,1) + spatial flip in BOTH directions.
 # Ref: conv_transpose_op_impl.h:40-48 (filter dim0 == input channels),

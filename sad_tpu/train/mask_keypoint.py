@@ -2,7 +2,7 @@
 
 Capability-equivalent to detectron/lib/roi_data/mask_rcnn.py /
 keypoint_rcnn.py + mask_rcnn_heads.py / keypoint_rcnn_heads.py losses,
-TPU-redesigned: the reference rasterizes polygon targets per sampled RoI on
+Redesigned: the reference rasterizes polygon targets per sampled RoI on
 the host (it samples RoIs on the host too); here RoIs are sampled on device,
 so targets are extracted on device by RoIAlign-cropping precomputed gt
 instance-mask rasters (the host loader rasterizes each gt polygon once per

@@ -84,13 +84,10 @@ def fused_momentum_sgd_update(
 ):
     """Same Caffe2 semantics as momentum_sgd_update over ONE raveled vector.
 
-    Measured SLOWER than the per-leaf form inside a fully-jitted train step
-    (89 vs 99 imgs/s on the v5e joint step): within one jit program XLA
-    already fuses the per-leaf updates, and the ravel/unravel concats add
-    HBM traffic. (A standalone-jitted per-leaf update DOES pay ~22 ms of
-    dispatch/output overhead — that is an artifact of running it as its own
-    program with ~200 outputs.) Kept as an option for host-driven update
-    loops; the train steps use the per-leaf form."""
+    Within one jit program XLA already fuses the per-leaf updates, and the
+    ravel/unravel concats add memory traffic, so the train steps use the
+    per-leaf form; this one serves host-driven update loops (a standalone
+    per-leaf update program has ~200 outputs)."""
     from jax.flatten_util import ravel_pytree
 
     p_vec, unravel = ravel_pytree(params)

@@ -109,7 +109,7 @@ def fast_rcnn_losses(cfg: Config, cls_score, labels, bbox_pred, bbox_targets,
 
     With cfg.TRAIN.OHEM (fast_rcnn_heads.py:70-109): per-RoI cls+bbox losses
     rank the RoIs per image, only the hardest TRAIN.OHEM_ROI_PER_IMG keep a
-    weight of 1, and the reduced losses use those weights (TPU-static: 0/1
+    weight of 1, and the reduced losses use those weights (static shapes: 0/1
     weights instead of the reference's label surgery).
 
     Group semantics: the reference computes per-GPU means scaled by
@@ -270,9 +270,7 @@ def make_rcnn_train_step(
                 # ---- proposals (train-mode top-Ns) + on-device sampling.
                 # Candidates are built per (level, image) under vmap; the
                 # greedy NMS over ALL (level x image) problems happens in ONE
-                # sublane-packed Pallas call (ops/nms.nms_multi: 8 problems per
-                # kernel program) — identical per-problem results, ~8x cheaper
-                # than NMS inside the per-image vmap.
+                # call (ops/nms.greedy_nms) — identical per-problem results.
                 from sad_tpu.ops.proposals import (
                     nms_levels_batched,
                     proposal_candidates,
@@ -492,12 +490,11 @@ def make_rcnn_train_step(
                 cfg.TRAIN.BATCH_SIZE_PER_IM, cfg.TRAIN.FG_FRACTION
             )
             # Static aux-branch RoI slot counts (MRCNN/KRCNN.ROI_SLOTS_PER_IM,
-            # a TPU extension): the default (-1) pays the reference's WORST
-            # CASE — box_fg_cap slots per image, 128 at reference settings —
-            # every step, where the reference's dynamic shapes pay only the
-            # actual fg count. The 8x512 keypoint tower measures 85% of bf16
-            # MXU peak (BENCH_NOTES round-3 keypoint decomposition), so aux
-            # cost is linear in these caps; fg rois beyond a cap keep box
+            # a static-shape extension): the default (-1) pays the
+            # reference's WORST CASE — box_fg_cap slots per image, 128 at
+            # reference settings — every step, where the reference's dynamic
+            # shapes pay only the actual fg count. Aux cost is linear in
+            # these caps; fg rois beyond a cap keep box
             # supervision but get no mask/keypoint loss.
             def _aux_cap(knob):
                 return box_fg_cap if knob <= 0 else min(knob, box_fg_cap)

@@ -165,75 +165,6 @@ def distill_losses(
     return total, metrics
 
 
-def fused_distill_losses(
-    cfg: Config,
-    student_out: Dict[str, Dict[int, jnp.ndarray]],
-    teacher_probs: Dict[int, jnp.ndarray],
-    batch: Dict[str, Any],
-    n_groups: int,
-) -> Tuple[jnp.ndarray, Dict[str, jnp.ndarray]]:
-    """Fused-Pallas path: focal + adaptive-distill + the PowSum normalizer
-    per level in ONE kernel pass over the dense grid
-    (sad_tpu.ops.pallas_losses) — the separate pow_sum reduction over the
-    teacher probs disappears entirely; per-group 1/Np is applied on (G,)
-    scalars afterwards (both losses are linear in 1/Np). Numerically
-    identical to retinanet_losses + distill_losses
-    (see tests/test_pallas_losses.py); the bbox loss (much smaller grid)
-    stays on the jnp path."""
-    from sad_tpu.ops.pallas_losses import fused_cls_losses_raw
-
-    d = cfg.DISTILLATION
-    r = cfg.RETINANET
-    a = cfg.num_anchors_per_cell()
-    loss_scale = 1.0 / n_groups
-    distill_scale = loss_scale * d.TEMPERATURE * d.TEMPERATURE
-    metrics: Dict[str, jnp.ndarray] = {}
-    total = jnp.float32(0.0)
-    fg_num = batch["fg_num"]  # (G,)
-
-    raw = {
-        lvl: fused_cls_losses_raw(
-            _split_anchor_axis(student_out["cls_logits"][lvl], a),
-            _split_anchor_axis(teacher_probs[lvl], a),
-            batch["labels"][lvl],
-            n_groups,
-            r.LOSS_GAMMA, r.LOSS_ALPHA,
-            d.LOSS_GAMMA, d.LOSS_ALPHA, d.LOSS_BETA, d.IGNORED_LABEL,
-            d.LOGITS_POWER, d.ADAPTIVE_NORMALIZER,
-        )
-        for lvl in cfg.fpn_levels()
-    }
-    if d.ADAPTIVE_NORMALIZER:
-        # PowSum over ALL levels' teacher probs, per group (ref:
-        # retinanet_heads.py:320-328) — from the kernel's third output
-        norms = sum(raw[lvl][2] for lvl in cfg.fpn_levels())
-        metrics["distill_normalizer"] = jnp.mean(norms)
-    else:
-        norms = fg_num
-
-    fg_np = jnp.maximum(fg_num, 1.0)
-    dn_np = jnp.maximum(norms, 1.0)
-    for lvl in cfg.fpn_levels():
-        focal_raw, distill_raw, _ = raw[lvl]
-        focal = jnp.float32(loss_scale) * jnp.sum(focal_raw / fg_np)
-        distill = jnp.float32(distill_scale) * jnp.sum(distill_raw / dn_np)
-        bbox = jax.vmap(
-            lambda p, t, m, s: select_smooth_l1_loss(
-                p, t, m, s, r.BBOX_REG_BETA, loss_scale * r.BBOX_REG_WEIGHT
-            )
-        )(
-            _group_view(_split_anchor_axis(student_out["bbox_pred"][lvl], a), n_groups),
-            _group_view(batch["bbox_targets"][lvl], n_groups),
-            _group_view(batch["fg_mask"][lvl], n_groups),
-            fg_num,
-        )
-        metrics[f"fl_fpn{lvl}"] = focal
-        metrics[f"fl_distill_fpn{lvl}"] = distill
-        metrics[f"retnet_loss_bbox_fpn{lvl}"] = jnp.sum(bbox)
-        total = total + focal + distill + jnp.sum(bbox)
-    return total, metrics
-
-
 def make_train_step(
     cfg: Config,
     student_model: RetinaNet,
@@ -290,18 +221,13 @@ def make_train_step(
 
         def loss_fn(params):
             out = student_model.apply({"params": params}, s_data)
-            if teacher_probs is not None and cfg.USE_PALLAS_LOSSES:
-                total, metrics = fused_distill_losses(
+            total, metrics = retinanet_losses(cfg, out, batch, G)
+            if teacher_probs is not None:
+                d_total, d_metrics = distill_losses(
                     cfg, out, teacher_probs, batch, G
                 )
-            else:
-                total, metrics = retinanet_losses(cfg, out, batch, G)
-                if teacher_probs is not None:
-                    d_total, d_metrics = distill_losses(
-                        cfg, out, teacher_probs, batch, G
-                    )
-                    total = total + d_total
-                    metrics.update(d_metrics)
+                total = total + d_total
+                metrics.update(d_metrics)
             metrics["loss"] = total
             return total, metrics
 

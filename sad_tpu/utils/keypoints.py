@@ -9,10 +9,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-try:  # fast C path when available; the numpy kernel below is the oracle
-    import cv2 as _cv2
-except ImportError:  # pragma: no cover
-    _cv2 = None
+from sad_tpu.utils.env import optional_module
 
 COCO_KEYPOINTS = [
     "nose", "left_eye", "right_eye", "left_ear", "right_ear",
@@ -66,10 +63,11 @@ def _resize_bicubic(m: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     half-pixel sampling grid, Keys a=-0.75 kernel, clamped borders.
     Delegates to real cv2 when importable (verified equal within float
     tolerance, tests/test_aux_surface.py); numpy path = fallback/oracle."""
-    if _cv2 is not None:
-        out = _cv2.resize(
+    cv2 = optional_module("cv2")  # fast C path; the numpy kernel is the oracle
+    if cv2 is not None:
+        out = cv2.resize(
             np.ascontiguousarray(m), (out_w, out_h),
-            interpolation=_cv2.INTER_CUBIC,
+            interpolation=cv2.INTER_CUBIC,
         )
         if out.ndim == 2:  # cv2 drops a size-1 channel dim
             out = out[:, :, None]

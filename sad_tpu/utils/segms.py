@@ -10,16 +10,14 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
-from PIL import Image, ImageDraw
 
-try:  # fast C path when available; the numpy kernel below is the oracle
-    import cv2 as _cv2
-except ImportError:  # pragma: no cover
-    _cv2 = None
+from sad_tpu.utils.env import optional_module
 
 
 def polys_to_mask(polygons: Sequence[Sequence[float]], height: int, width: int) -> np.ndarray:
     """Rasterize COCO polygon(s) -> binary (height, width) mask."""
+    from PIL import Image, ImageDraw
+
     img = Image.new("L", (width, height), 0)
     draw = ImageDraw.Draw(img)
     for poly in polygons:
@@ -79,10 +77,11 @@ def _resize_bilinear(m: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     equal to the numpy kernel within float tolerance,
     tests/test_aux_surface.py); the numpy path is the no-cv2 fallback and
     the cross-check oracle."""
-    if _cv2 is not None:
-        out = _cv2.resize(
+    cv2 = optional_module("cv2")  # fast C path; the numpy kernel is the oracle
+    if cv2 is not None:
+        out = cv2.resize(
             np.ascontiguousarray(m), (out_w, out_h),
-            interpolation=_cv2.INTER_LINEAR,
+            interpolation=cv2.INTER_LINEAR,
         )
         if m.ndim == 3 and out.ndim == 2:  # cv2 drops a size-1 channel dim
             out = out[:, :, None]

@@ -9,7 +9,6 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
-from PIL import Image, ImageDraw
 
 
 def colormap(n: int = 79) -> np.ndarray:
@@ -92,6 +91,8 @@ def vis_one_image(
             _blend_mask(
                 arr, np.asarray(m), cmap[int(classes[k]) % len(cmap)]
             )
+    from PIL import Image, ImageDraw
+
     img = Image.fromarray(arr)
     draw = ImageDraw.Draw(img)
     for k in range(len(boxes)):

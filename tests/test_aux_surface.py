@@ -230,8 +230,10 @@ def test_net_drawer_writes_dot(tmp_path):
     out = str(tmp_path / "m.dot")
     main([
         "--cfg",
-        "/root/reference/detectron/configs/focal_distillation/"
-        "retinanet_R-50-FPN_distillation.yaml",
+        os.path.join(
+            os.path.dirname(__file__), "..", "configs",
+            "retinanet_R-50-FPN_distillation.yaml",
+        ),
         "--out", out, "TRAIN.WEIGHTS", "",
     ])
     text = open(out).read()
@@ -418,8 +420,8 @@ class TestCv2Delegation:
     tests pin that the delegated outputs equal the numpy oracles (so either
     path can serve the parity claims)."""
 
-    def test_bilinear_cv2_equals_numpy_oracle(self):
-        cv2 = pytest.importorskip("cv2")
+    def test_bilinear_cv2_equals_numpy_oracle(self, monkeypatch):
+        pytest.importorskip("cv2")
         import sad_tpu.utils.segms as segms
 
         rng = np.random.RandomState(0)
@@ -427,26 +429,22 @@ class TestCv2Delegation:
                              (100, 100, 643, 211)]:
             m = (rng.rand(h, w, 3) * 255).astype(np.float32)
             got = segms._resize_bilinear(m, oh, ow)
-            orig, segms._cv2 = segms._cv2, None
-            try:
+            with monkeypatch.context() as mp:
+                mp.setattr(segms, "optional_module", lambda name: None)
                 want = segms._resize_bilinear(m, oh, ow)
-            finally:
-                segms._cv2 = orig
             np.testing.assert_allclose(got, want, atol=1e-3)
             assert got.shape == want.shape
 
-    def test_bicubic_cv2_equals_numpy_oracle(self):
-        cv2 = pytest.importorskip("cv2")
+    def test_bicubic_cv2_equals_numpy_oracle(self, monkeypatch):
+        pytest.importorskip("cv2")
         import sad_tpu.utils.keypoints as kp
 
         rng = np.random.RandomState(1)
         for h, w, k, oh, ow in [(14, 14, 17, 120, 85), (8, 8, 1, 33, 57)]:
             m = rng.rand(h, w, k).astype(np.float32)
             got = kp._resize_bicubic(m, oh, ow)
-            orig, kp._cv2 = kp._cv2, None
-            try:
+            with monkeypatch.context() as mp:
+                mp.setattr(kp, "optional_module", lambda name: None)
                 want = kp._resize_bicubic(m, oh, ow)
-            finally:
-                kp._cv2 = orig
             np.testing.assert_allclose(got, want, atol=1e-5)
             assert got.shape == want.shape

@@ -19,8 +19,8 @@ import pytest
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
+from sad_tpu.models import nn
 from sad_tpu.train.checkpoint import (
     _kernel_to_flax,
     _kernel_to_ref,

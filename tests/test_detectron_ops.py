@@ -130,6 +130,86 @@ class TestRoIAlign:
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-5)
 
 
+def _multilevel_case():
+    """FPN levels P2..P5 of a 256x384 canvas and rois spanning them: small
+    (P2), large (P4/P5), extreme aspect ratios, a zero-area roi (1-px bin
+    rule) and invalid slots."""
+    rng = np.random.RandomState(0)
+    b, c = 2, 4
+    hc, wc = 256, 384
+    feats = {
+        l: rng.randn(b, hc // 2 ** l, wc // 2 ** l, c).astype(np.float32)
+        for l in (2, 3, 4, 5)
+    }
+    r = 21
+    x1 = rng.uniform(0, wc * 0.8, r)
+    y1 = rng.uniform(0, hc * 0.8, r)
+    w = np.concatenate(
+        [rng.uniform(6, 40, 8), rng.uniform(100, 300, 5),
+         rng.uniform(2, 6, 4), rng.uniform(200, 370, 4)]
+    )
+    h = np.concatenate(
+        [rng.uniform(6, 40, 8), rng.uniform(100, 200, 5),
+         rng.uniform(150, 250, 4), rng.uniform(1, 4, 4)]
+    )
+    rois = np.stack(
+        [rng.randint(0, b, r).astype(np.float32), x1, y1,
+         np.minimum(x1 + w, wc - 1), np.minimum(y1 + h, hc - 1)],
+        axis=1,
+    ).astype(np.float32)
+    rois[-1, 1:] = [10.0, 10.0, 10.0, 10.0]
+    valid = rng.rand(r) > 0.15
+    return feats, rois, valid
+
+
+class TestMultilevelRoIAlign:
+    """ops/proposals.multilevel_roi_align: each roi is pooled from its FPN
+    level (map_rois_to_fpn_levels) and invalid slots come back zero."""
+
+    @pytest.mark.parametrize("res", [2, 7])
+    def test_matches_per_level_cuda_transcription(self, res):
+        from sad_tpu.ops.proposals import (
+            map_rois_to_fpn_levels,
+            multilevel_roi_align,
+        )
+
+        feats, rois, valid = _multilevel_case()
+        levels = np.asarray(map_rois_to_fpn_levels(jnp.asarray(rois[:, 1:]), 2, 5))
+        assert len(set(levels.tolist())) >= 2  # the case spans levels
+        got = jax.jit(
+            lambda f, r, l, v: multilevel_roi_align(f, r, l, v, res, 2)
+        )(feats, rois, levels, valid)
+        for i in range(len(rois)):
+            lvl = int(levels[i])
+            ref = np_roi_align(feats[lvl], rois[i:i + 1], 1.0 / 2 ** lvl, res, 2)
+            want = ref[0] if valid[i] else np.zeros_like(ref[0])
+            np.testing.assert_allclose(
+                np.asarray(got[i]), want, rtol=1e-4, atol=1e-5
+            )
+
+    def test_gradient_reaches_only_assigned_levels(self):
+        from sad_tpu.ops.proposals import (
+            map_rois_to_fpn_levels,
+            multilevel_roi_align,
+        )
+
+        feats, rois, valid = _multilevel_case()
+        levels = map_rois_to_fpn_levels(jnp.asarray(rois[:, 1:]), 2, 5)
+        keep = np.asarray(levels) != 3  # the P3 rois are masked invalid
+        feats_j = {l: jnp.asarray(f) for l, f in feats.items()}
+
+        def loss(f, rr):
+            o = multilevel_roi_align(f, rr, levels, jnp.asarray(valid & keep), 7, 2)
+            return jnp.sum(jnp.sin(o) * o)
+
+        gf, gr = jax.grad(loss, argnums=(0, 1))(feats_j, jnp.asarray(rois))
+        assert float(jnp.abs(gf[3]).max()) == 0.0
+        assert float(jnp.abs(gf[5]).max()) == 0.0
+        assert float(jnp.abs(gf[2]).max()) > 0.0
+        # proposals are data: no gradient flows to roi coordinates
+        assert float(jnp.abs(gr).max()) == 0.0
+
+
 class TestRoIPool:
     def test_matches_cuda_transcription(self):
         rng = np.random.RandomState(0)

@@ -3,7 +3,7 @@
 Every packed phrasing must reproduce the XLA feature_group_count conv —
 values AND gradients — since the backbone may swap them at trace time
 underneath unchanged checkpoints (ResNeXt grouped 3x3,
-/root/reference/detectron/lib/modeling/ResNet.py:244-255).
+detectron/lib/modeling/ResNet.py:244-255).
 """
 
 import jax
@@ -79,9 +79,8 @@ def test_gradients_match_fgc(pack):
 
 def test_resolve_pack():
     assert gc.resolve_pack("fgc", 64, 4) is None
-    # auto = lane on TPU, fgc elsewhere; the suite runs on CPU
-    expect = 32 if jax.default_backend() == "tpu" else None
-    assert gc.resolve_pack("auto", 64, 4) == expect
+    # auto = XLA feature_group_count on every backend
+    assert gc.resolve_pack("auto", 64, 4) is None
     assert gc.resolve_pack("dense", 64, 4) == 64
     assert gc.resolve_pack("lane", 64, 4) == 32
     assert gc.resolve_pack("lane", 64, 32) == 4

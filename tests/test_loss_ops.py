@@ -28,7 +28,7 @@ def _rand_case(seed, n=2, a=3, c=5, h=4, w=6):
     return logits, teacher_probs, labels, wp
 
 
-def _nchw_to_tpu(logits_nchw, num_classes):
+def _nchw_to_nhwac(logits_nchw, num_classes):
     """(N, A*C, H, W) -> (N, H, W, A, C) — the sad_tpu loss layout."""
     n, d, h, w = logits_nchw.shape
     a = d // num_classes
@@ -37,7 +37,7 @@ def _nchw_to_tpu(logits_nchw, num_classes):
     )
 
 
-def _labels_to_tpu(labels_nahw):
+def _labels_to_nhwa(labels_nahw):
     return labels_nahw.transpose(0, 2, 3, 1)  # (N, H, W, A)
 
 
@@ -52,8 +52,8 @@ class TestSigmoidFocalLoss:
 
         ref, _ = R.sigmoid_focal_loss_fwd(logits, labels, wp, gamma, alpha, c, scale)
         got = L.sigmoid_focal_loss(
-            jnp.asarray(_nchw_to_tpu(logits, c)),
-            jnp.asarray(_labels_to_tpu(labels)),
+            jnp.asarray(_nchw_to_nhwac(logits, c)),
+            jnp.asarray(_labels_to_nhwa(labels)),
             jnp.float32(wp),
             gamma,
             alpha,
@@ -72,13 +72,13 @@ class TestSigmoidFocalLoss:
         )
         f = lambda x: g * L.sigmoid_focal_loss(
             x,
-            jnp.asarray(_labels_to_tpu(labels)),
+            jnp.asarray(_labels_to_nhwa(labels)),
             jnp.float32(wp),
             gamma,
             alpha,
             scale,
         )
-        got_dx = jax.grad(f)(jnp.asarray(_nchw_to_tpu(logits, c)))
+        got_dx = jax.grad(f)(jnp.asarray(_nchw_to_nhwac(logits, c)))
         # map back to NCHW for comparison
         got_nchw = np.asarray(got_dx).transpose(0, 3, 4, 1, 2).reshape(logits.shape)
         np.testing.assert_allclose(got_nchw, ref_dx, rtol=RTOL, atol=ATOL)
@@ -87,8 +87,8 @@ class TestSigmoidFocalLoss:
         logits, _, labels, _ = _rand_case(7)
         labels[:] = -1
         got = L.sigmoid_focal_loss(
-            jnp.asarray(_nchw_to_tpu(logits, 5)),
-            jnp.asarray(_labels_to_tpu(labels)),
+            jnp.asarray(_nchw_to_nhwac(logits, 5)),
+            jnp.asarray(_labels_to_nhwa(labels)),
             jnp.float32(10.0),
             2.0,
             0.25,
@@ -109,9 +109,9 @@ class TestSigmoidAdaptiveDistillLoss:
             logits, pt, labels, wp, gamma, alpha, beta, c, ignored, scale
         )
         got = L.sigmoid_adaptive_distill_loss(
-            jnp.asarray(_nchw_to_tpu(logits, c)),
-            jnp.asarray(_nchw_to_tpu(pt, c)),
-            jnp.asarray(_labels_to_tpu(labels)),
+            jnp.asarray(_nchw_to_nhwac(logits, c)),
+            jnp.asarray(_nchw_to_nhwac(pt, c)),
+            jnp.asarray(_labels_to_nhwa(labels)),
             jnp.float32(wp),
             gamma,
             alpha,
@@ -130,9 +130,9 @@ class TestSigmoidAdaptiveDistillLoss:
             logits, pt, labels, wp, gamma, alpha, beta, c, -1, scale
         )
         got = L.sigmoid_adaptive_distill_loss(
-            jnp.asarray(_nchw_to_tpu(logits, c)),
-            jnp.asarray(_nchw_to_tpu(pt, c)),
-            jnp.asarray(_labels_to_tpu(labels)),
+            jnp.asarray(_nchw_to_nhwac(logits, c)),
+            jnp.asarray(_nchw_to_nhwac(pt, c)),
+            jnp.asarray(_labels_to_nhwa(labels)),
             jnp.float32(wp),
             gamma,
             alpha,
@@ -153,8 +153,8 @@ class TestSigmoidAdaptiveDistillLoss:
         )
         f = lambda x: g * L.sigmoid_adaptive_distill_loss(
             x,
-            jnp.asarray(_nchw_to_tpu(pt, c)),
-            jnp.asarray(_labels_to_tpu(labels)),
+            jnp.asarray(_nchw_to_nhwac(pt, c)),
+            jnp.asarray(_labels_to_nhwa(labels)),
             jnp.float32(wp),
             gamma,
             alpha,
@@ -162,7 +162,7 @@ class TestSigmoidAdaptiveDistillLoss:
             -1,
             scale,
         )
-        got_dx = jax.grad(f)(jnp.asarray(_nchw_to_tpu(logits, c)))
+        got_dx = jax.grad(f)(jnp.asarray(_nchw_to_nhwac(logits, c)))
         got_nchw = np.asarray(got_dx).transpose(0, 3, 4, 1, 2).reshape(logits.shape)
         np.testing.assert_allclose(got_nchw, ref_dx, rtol=RTOL, atol=ATOL)
 
@@ -170,9 +170,9 @@ class TestSigmoidAdaptiveDistillLoss:
         logits, pt, labels, wp = _rand_case(9)
         c = 5
         f = lambda tp: L.sigmoid_adaptive_distill_loss(
-            jnp.asarray(_nchw_to_tpu(logits, c)),
+            jnp.asarray(_nchw_to_nhwac(logits, c)),
             tp,
-            jnp.asarray(_labels_to_tpu(labels)),
+            jnp.asarray(_labels_to_nhwa(labels)),
             jnp.float32(wp),
             2.0,
             0.5,
@@ -180,7 +180,7 @@ class TestSigmoidAdaptiveDistillLoss:
             -1,
             1.0,
         )
-        dt = jax.grad(f)(jnp.asarray(_nchw_to_tpu(pt, c)))
+        dt = jax.grad(f)(jnp.asarray(_nchw_to_nhwac(pt, c)))
         assert float(jnp.abs(dt).max()) == 0.0
 
 
@@ -195,7 +195,7 @@ class TestPowSum:
 
 class TestSelectSmoothL1Loss:
     def _sparse_case(self, seed, n=2, a=3, h=5, w=7):
-        """Build the reference's sparse (M,4) form and the dense TPU form of
+        """Build the reference's sparse (M,4) form and the dense form of
         the same problem, and check the loss values agree."""
         rng = np.random.RandomState(seed)
         d = 4 * a
@@ -221,13 +221,13 @@ class TestSelectSmoothL1Loss:
 
         n, d, h, w = bbox_pred.shape
         a = d // 4
-        pred_tpu = bbox_pred.reshape(n, a, 4, h, w).transpose(0, 3, 4, 1, 2)
-        tgt_tpu = dense_targets.transpose(0, 3, 4, 1, 2)
-        mask_tpu = mask.transpose(0, 2, 3, 1)
+        pred_dense = bbox_pred.reshape(n, a, 4, h, w).transpose(0, 3, 4, 1, 2)
+        tgt_dense = dense_targets.transpose(0, 3, 4, 1, 2)
+        mask_dense = mask.transpose(0, 2, 3, 1)
         got = L.select_smooth_l1_loss(
-            jnp.asarray(pred_tpu),
-            jnp.asarray(tgt_tpu),
-            jnp.asarray(mask_tpu),
+            jnp.asarray(pred_dense),
+            jnp.asarray(tgt_dense),
+            jnp.asarray(mask_dense),
             jnp.float32(fg_num),
             beta,
             scale,
@@ -242,14 +242,14 @@ class TestSelectSmoothL1Loss:
         )
         n, d, h, w = bbox_pred.shape
         a = d // 4
-        pred_tpu = bbox_pred.reshape(n, a, 4, h, w).transpose(0, 3, 4, 1, 2)
-        tgt_tpu = dense_targets.transpose(0, 3, 4, 1, 2)
-        mask_tpu = mask.transpose(0, 2, 3, 1)
+        pred_dense = bbox_pred.reshape(n, a, 4, h, w).transpose(0, 3, 4, 1, 2)
+        tgt_dense = dense_targets.transpose(0, 3, 4, 1, 2)
+        mask_dense = mask.transpose(0, 2, 3, 1)
         f = lambda x: g * L.select_smooth_l1_loss(
-            x, jnp.asarray(tgt_tpu), jnp.asarray(mask_tpu),
+            x, jnp.asarray(tgt_dense), jnp.asarray(mask_dense),
             jnp.float32(fg_num), beta, scale,
         )
-        got = jax.grad(f)(jnp.asarray(pred_tpu))
+        got = jax.grad(f)(jnp.asarray(pred_dense))
         got_nchw = (
             np.asarray(got).transpose(0, 3, 4, 1, 2).reshape(bbox_pred.shape)
         )
@@ -325,8 +325,8 @@ class TestRandomizedParitySweep:
                 logits, labels, wp, gamma, alpha, c, scale
             )
             got_f = L.sigmoid_focal_loss(
-                jnp.asarray(_nchw_to_tpu(logits, c)),
-                jnp.asarray(_labels_to_tpu(labels)),
+                jnp.asarray(_nchw_to_nhwac(logits, c)),
+                jnp.asarray(_labels_to_nhwa(labels)),
                 jnp.float32(wp), gamma, alpha, scale,
             )
             np.testing.assert_allclose(
@@ -338,9 +338,9 @@ class TestRandomizedParitySweep:
                 logits, pt, labels, wp, gamma, alpha, 0.0, c, -1, scale
             )
             got_d = L.sigmoid_adaptive_distill_loss(
-                jnp.asarray(_nchw_to_tpu(logits, c)),
-                jnp.asarray(_nchw_to_tpu(pt, c)),
-                jnp.asarray(_labels_to_tpu(labels)),
+                jnp.asarray(_nchw_to_nhwac(logits, c)),
+                jnp.asarray(_nchw_to_nhwac(pt, c)),
+                jnp.asarray(_labels_to_nhwa(labels)),
                 jnp.float32(wp), gamma, alpha, 0.0, -1, scale,
             )
             np.testing.assert_allclose(

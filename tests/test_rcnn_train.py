@@ -196,7 +196,7 @@ class TestRCNNInference:
 
 
 class TestAuxRoiSlotCaps:
-    """MRCNN/KRCNN.ROI_SLOTS_PER_IM (TPU extension): the static aux-branch
+    """MRCNN/KRCNN.ROI_SLOTS_PER_IM (static-shape extension): the aux-branch
     slot count. knob == box fg cap must be bit-identical to the default
     (-1); a smaller cap must still produce a finite, trainable step."""
 

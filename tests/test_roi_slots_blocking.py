@@ -140,19 +140,11 @@ class TestMultilevelSlotsPerIm:
             np.asarray(bb), np.asarray(a), rtol=1e-5, atol=1e-5
         )
 
-    def test_hybrid_dispatch_grads(self, monkeypatch):
-        """multilevel_roi_align with ROI_ALIGN_MODE=hybrid + slots_per_im:
-        forward dense-blocked, backward through the custom VJP — outputs
-        and feature grads match the unblocked dense reference."""
-        from sad_tpu.ops import pallas_roi_align
+    def test_hybrid_dispatch_grads(self):
+        """multilevel_roi_align with slots_per_im (per-image blocking):
+        outputs and feature grads match the unblocked form."""
         from sad_tpu.ops.proposals import multilevel_roi_align
 
-        monkeypatch.setattr(pallas_roi_align, "ROI_ALIGN_MODE", "hybrid")
-        # CPU: keep the windowed bwd out of play so this pins the dense
-        # transpose path of the blocked form
-        monkeypatch.setattr(
-            pallas_roi_align, "use_windowed_kernel", lambda *a, **k: False
-        )
         feats, rois, levels, valid = self._setup(seed=4)
         cot = None
 

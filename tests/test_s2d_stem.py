@@ -12,8 +12,6 @@ from sad_tpu.models.resnet import Conv1S2D, _conv
 
 
 def _ref_stem(x, kernel):
-    import flax.linen as nn
-
     conv = _conv("conv1", 64, 7, 2, dtype=jnp.float32)
     return conv.apply({"params": {"kernel": kernel}}, x)
 

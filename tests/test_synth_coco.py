@@ -1,10 +1,9 @@
 """Surface tests for the synthetic COCO generator (data/synth_coco.py).
 
-The generator is the stand-in for real COCO in the parity dress rehearsal
-(VERDICT r2 next-round item 2); these tests pin the properties the rehearsal
-relies on: determinism, multi-class coverage, crowd RLE / ignore / small
-objects present, keypoints with a flip map, and a clean roidb roundtrip
-through the CocoDataset layer.
+The generator is the stand-in for real COCO in the parity dress rehearsal;
+these tests pin the properties the rehearsal relies on: determinism,
+multi-class coverage, crowd RLE / ignore / small objects present, keypoints
+with a flip map, and a clean roidb roundtrip through the CocoDataset layer.
 """
 
 import json

@@ -1,35 +1,21 @@
-"""MFU accounting for the headline workloads (VERDICT r4 Weak #5).
+"""Model FLOPs of a train step, counted from its jaxpr.
 
-Publishes the missing whole-step Model-FLOPs-Utilization row per workload:
+    python tools_drives/mfu_report.py   # runs on the CPU, no GPU needed
 
-    MFU = analytic matmul/conv FLOPs per step / measured step time / peak
+FLOPs are counted by walking the step function's jaxpr and summing
+`conv_general_dilated` and `dot_general` contractions; elementwise work is
+excluded by convention, so the number is the standard "model flops"
+accounting. Backward-pass convs appear in the jaxpr (the step traces
+through jax.grad), so no 3x heuristics are involved. `scan` bodies are
+multiplied by length; `pjit`/`custom_vjp`/`remat` calls are recursed into.
+Pallas kernels are opaque to the walk.
 
-FLOPs are counted by walking the step function's jaxpr (traced on CPU —
-no chip needed) and summing `conv_general_dilated` and `dot_general`
-contractions, the ops the MXU executes; elementwise work is excluded by
-convention, so the number is the standard "model flops" accounting.
-Backward-pass convs appear in the jaxpr (we trace through jax.grad), so
-no 3x heuristics are involved. `scan` bodies are multiplied by length;
-`pjit`/`custom_vjp`/`remat` calls are recursed into. Pallas kernels are
-opaque to the jaxpr walk — the family steps therefore trace with the
-dense RoIAlign path (SAD_TPU_ROI_MODE=dense counts the same algorithmic
-tent-weight matmuls the kernel performs).
-
-For X-101 the grouped trunk is counted TWICE: at the algorithmic fgc
-phrasing (useful model flops) and at the shipped lane-packed phrasing
-(executed flops, 128/cg inflation) — MFU_alg vs MFU_exec brackets how
-much of the chip the packing trades for compilability.
-
-Measured step times come from tools_drives/results/*.json (the durable
-records the chip drives write); the peak is TPU v5e bf16
-(197 TFLOP/s, public spec — jax.devices() reports 'TPU v5 lite').
-
-Run (CPU): PYTHONPATH=/root/repo python tools_drives/mfu_report.py
+Model FLOP/s utilization is these FLOPs over a measured step time and the
+device's peak; both come from a GPU run, not from this script.
 """
 from __future__ import annotations
 
 import json
-import math
 import os
 import sys
 
@@ -37,10 +23,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-PEAK_BF16 = 197e12  # TPU v5e per-chip bf16 peak, public spec
-RESULTS = os.path.join(REPO, "tools_drives", "results")
+CONFIGS = os.path.join(REPO, "configs")
 
 
 # ------------------------------------------------------------------ jaxpr walk
@@ -148,174 +132,19 @@ def trace_retinanet(yaml, n_groups, h_w=None, teacher_yaml=None,
     return flops_of_jaxpr(jaxpr.jaxpr), n_images
 
 
-def trace_rcnn(yaml, extra=(), no_mask=False):
-    import tempfile
-
-    import jax
-    import jax.numpy as jnp
-    from PIL import Image
-
-    from sad_tpu.config import load_cfg
-    from sad_tpu.data.rpn_minibatch import RCNNMinibatchBuilder
-    from sad_tpu.models import create_model
-    from sad_tpu.models.model_builder import init_model_params
-    from sad_tpu.train import TrainState, init_momentum_state
-    from sad_tpu.train.rcnn_train import make_rcnn_train_step
-
-    cfg = load_cfg(yaml, ["NUM_GPUS", "1", "TRAIN.WEIGHTS", "",
-                          "COMPUTE_DTYPE", "bfloat16",
-                          "PIXEL_STD", "(57.375,57.12,58.395)"]
-                   + (["MODEL.MASK_ON", "False"] if no_mask else [])
-                   + list(extra))
-    n_images = cfg.TRAIN.IMS_PER_BATCH
-    model = create_model(cfg)
-    params = init_model_params(model, jax.random.PRNGKey(0),
-                               (1, 128, 128, 3))
-    rng = np.random.RandomState(0)
-    d = tempfile.mkdtemp(prefix="mfu_rcnn_")
-    entries = []
-    for i in range(n_images):
-        p = os.path.join(d, f"{i}.png")
-        Image.fromarray(
-            rng.randint(0, 255, (600, 980, 3), np.uint8)).save(p)
-        nb = 8
-        x0 = rng.uniform(0, 800, nb)
-        y0 = rng.uniform(0, 450, nb)
-        bw = rng.uniform(40, 160, nb)
-        bh = rng.uniform(40, 120, nb)
-        boxes = np.stack([x0, y0, x0 + bw, y0 + bh], 1).astype(np.float32)
-        segms = [
-            [[float(b[0]), float(b[1]), float(b[2]), float(b[1]),
-              float(b[2]), float(b[3]), float(b[0]), float(b[3])]]
-            for b in boxes
-        ] if cfg.MODEL.MASK_ON else [None] * nb
-        entry = {"id": i + 1, "image": p, "width": 980, "height": 600,
-                 "flipped": False, "boxes": boxes,
-                 "gt_classes": rng.randint(
-                     1, cfg.MODEL.NUM_CLASSES, nb).astype(np.int32),
-                 "is_crowd": np.zeros(nb, bool), "segms": segms}
-        if cfg.MODEL.KEYPOINTS_ON:
-            nk = cfg.KRCNN.NUM_KEYPOINTS
-            kp = np.zeros((nb, nk, 3), np.float32)
-            kp[..., 0] = rng.uniform(boxes[:, 0:1], boxes[:, 2:3], (nb, nk))
-            kp[..., 1] = rng.uniform(boxes[:, 1:2], boxes[:, 3:4], (nb, nk))
-            kp[..., 2] = 2.0
-            entry["gt_keypoints"] = kp
-        entries.append(entry)
-    built = RCNNMinibatchBuilder(cfg).build(entries, seed=0)
-    batch = jax.tree.map(jnp.asarray, built)
-    step = make_rcnn_train_step(cfg, model, n_groups=1)
-    state = TrainState(params, init_momentum_state(params).velocity)
-    jaxpr = jax.make_jaxpr(step)(state, batch, jnp.float32(1e-6),
-                                 jax.random.PRNGKey(3))
-    return flops_of_jaxpr(jaxpr.jaxpr), n_images
-
-
-def measured_ms(record, key="ms_per_step"):
-    p = os.path.join(RESULTS, record + ".json")
-    if not os.path.isfile(p):
-        return None
-    return json.load(open(p))["payload"].get(key)
-
-
 def main():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-
-    from sad_tpu.ops import grouped_conv as gc
-
-    CFGS = "/root/reference/detectron/configs"
-    rows = []
-
-    def add(name, flops, n_images, record, ms=None):
-        ms = ms or measured_ms(record)
-        row = {"workload": name,
-               "tflops_per_step": round(flops / 1e12, 3),
-               "n_images": n_images,
-               "gflops_per_img": round(flops / n_images / 1e9, 1),
-               "ms_per_step": ms,
-               "mfu": (round(flops / (ms / 1e3) / PEAK_BF16, 4)
-                       if ms else None),
-               "record": record}
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-
-    # flagship SAD step: bs32 (16 groups x 2), 640x1024. bench.py reports
-    # imgs/s; step time = n_images / imgs_per_s.
-    f, n = trace_retinanet(
-        f"{CFGS}/focal_distillation/retinanet_R-50-FPN_distillation.yaml",
-        n_groups=16, h_w=(640, 1024),
-        teacher_yaml=f"{CFGS}/focal_distillation/"
-                     "retinanet_R-101-FPN_1x_teacher.yaml",
+    # flagship SAD step: 16 images (8 groups x 2) at 640x1024
+    flops, n = trace_retinanet(
+        os.path.join(CONFIGS, "retinanet_R-50-FPN_distillation.yaml"),
+        n_groups=8, h_w=(640, 1024),
+        teacher_yaml=os.path.join(CONFIGS, "retinanet_R-101-FPN_1x_teacher.yaml"),
         extra=("NUM_GPUS", "8"))
-    bench = measured_ms("flagship_bench_r4", "value")  # imgs/s
-    add("SAD joint step R-50<-R-101 bs32 640x1024", f, n,
-        "flagship_bench_r4", ms=(n / bench * 1e3) if bench else None)
-
-    # zoo rows at 896x1408, bs8 (4 groups x 2)
-    for yaml_name, rec in (
-        ("retinanet_R-50-FPN_1x.yaml", "zoo_retinanet_r50"),
-        ("retinanet_R-101-FPN_1x.yaml", "zoo_retinanet_r101"),
-    ):
-        f, n = trace_retinanet(
-            f"{CFGS}/12_2017_baselines/{yaml_name}", n_groups=4,
-            h_w=(896, 1408))
-        add(f"plain {yaml_name.split('.')[0]} bs8 896x1408", f, n, rec)
-
-    # X-101: algorithmic (fgc) AND executed (lane) counting
-    orig = gc.GROUPED_CONV_IMPL
-    try:
-        for impl, tag in (("fgc", "alg"), ("lane", "exec")):
-            gc.GROUPED_CONV_IMPL = impl
-            f, n = trace_retinanet(
-                f"{CFGS}/12_2017_baselines/"
-                "retinanet_X-101-64x4d-FPN_1x.yaml",
-                n_groups=4, h_w=(896, 1408))
-            add(f"plain retinanet_X-101-64x4d bs8 [{tag} flops]", f, n,
-                "zoo_retinanet_x101")
-    finally:
-        gc.GROUPED_CONV_IMPL = orig
-
-    # R-CNN families (bs2 records; dense RoI path for tracing)
-    os.environ["SAD_TPU_ROI_MODE"] = "dense"
-    mask_yaml = f"{CFGS}/12_2017_baselines/e2e_mask_rcnn_R-50-FPN_1x.yaml"
-    kps_yaml = (f"{CFGS}/12_2017_baselines/"
-                "e2e_keypoint_rcnn_R-50-FPN_1x.yaml")
-    f, n = trace_rcnn(mask_yaml, ("TRAIN.IMS_PER_BATCH", "2"),
-                      no_mask=True)
-    add("faster_rcnn R-50-FPN bs2", f, n, "family_faster_rcnn_bs2")
-    f, n = trace_rcnn(mask_yaml, ("TRAIN.IMS_PER_BATCH", "2",
-                                  "MRCNN.ROI_SLOTS_PER_IM", "32"))
-    add("mask_rcnn R-50-FPN bs2", f, n, "family_mask_rcnn_bs2")
-    f, n = trace_rcnn(kps_yaml, ("TRAIN.IMS_PER_BATCH", "2",
-                                 "KRCNN.ROI_SLOTS_PER_IM", "32",
-                                 "MRCNN.ROI_SLOTS_PER_IM", "32"))
-    add("keypoint_rcnn R-50-FPN bs2", f, n, "family_keypoint_rcnn_bs2")
-    # bs8 rows reuse the bs2 jaxpr flops x4 only if records exist; trace
-    # honestly instead (batch changes RoI slot totals)
-    f, n = trace_rcnn(mask_yaml, ("TRAIN.IMS_PER_BATCH", "8",
-                                  "MRCNN.ROI_SLOTS_PER_IM", "32"))
-    # prefer the live drive record; _remat_off is the round-4 backfill name
-    mask8 = ("family_mask_rcnn_bs8"
-             if measured_ms("family_mask_rcnn_bs8")
-             else "family_mask_rcnn_bs8_remat_off")
-    add("mask_rcnn R-50-FPN bs8", f, n, mask8)
-    for fam, yaml, extra in (
-        ("faster", mask_yaml, ("TRAIN.IMS_PER_BATCH", "8")),
-        ("keypoint", kps_yaml, ("TRAIN.IMS_PER_BATCH", "8",
-                                "KRCNN.ROI_SLOTS_PER_IM", "32",
-                                "MRCNN.ROI_SLOTS_PER_IM", "32")),
-    ):
-        f, n = trace_rcnn(yaml, extra, no_mask=(fam == "faster"))
-        add(f"{fam}_rcnn R-50-FPN bs8", f, n, f"family_{fam}_rcnn_bs8")
-
-    from driveutil import record_result
-    record_result("mfu_accounting", {
-        "peak_bf16_tflops": PEAK_BF16 / 1e12,
-        "method": "jaxpr conv/dot flop walk (see module docstring)",
-        "rows": rows,
-    })
-    print("REPORT OK")
+    print(json.dumps({
+        "workload": "SAD step R-50<-R-101, 16 images at 640x1024",
+        "tflops_per_step": round(flops / 1e12, 3),
+        "gflops_per_img": round(flops / n / 1e9, 1),
+    }))
 
 
 if __name__ == "__main__":
